@@ -10,10 +10,13 @@ Kernel K3 (``csrc/point_add.cu``) is the complete addition
 :func:`point_add`. Kernel K6 (``csrc/point_add_planes.cu``),
 :func:`point_add_planes`, is the same addition on points held as coordinate
 planes, ``(3, ..., 8)`` with X, Y and Z each contiguous, as the reference's
-``JacobianPoint`` rows are. The functions named ``*_plain`` are the plain PyTorch
-versions of the formulas: they run the same formulas, select their cases
-in the same order as the reference and as the CUDA device functions of
-``csrc/field.cuh``, and so give bit-identical Jacobian coordinates.
+``JacobianPoint`` rows are. Kernel K8 (``csrc/step_chain.cu``),
+:func:`step_chain`, chains the bucket step of K2 over fixed points:
+``acc = head ? lift(P) : acc + P`` by the incomplete law. The functions
+named ``*_plain`` are the plain PyTorch versions of the formulas: they run
+the same formulas, select their cases in the same order as the reference
+and as the CUDA device functions of ``csrc/field.cuh``, and so give
+bit-identical Jacobian coordinates.
 """
 
 from __future__ import annotations
@@ -205,11 +208,7 @@ def point_add(spec: FieldSpec, p: torch.Tensor, q: torch.Tensor, out=None) -> to
         cuda.require(t, torch.int32, "K3 point add")
     n = p.numel() // (3 * L.NLIMBS)
     if n:
-        status = cuda.library().bz_point_add(
-            spec.kernel_consts, cuda.ptr(p), cuda.ptr(q), cuda.ptr(out), n, cuda.stream(p)
-        )
-        cuda.check(status, "K3 point add")
-        cuda.count("K3")
+        cuda.launch("K3", "bz_point_add", p, spec.kernel_consts, cuda.ptr(p), cuda.ptr(q), cuda.ptr(out), n)
     return out
 
 
@@ -239,9 +238,55 @@ def point_add_planes(spec: FieldSpec, p: torch.Tensor, q: torch.Tensor, out=None
         cuda.require(t, torch.int32, "K6 point add planes")
     n = p.numel() // (3 * L.NLIMBS)
     if n:
-        status = cuda.library().bz_point_add_planes(
-            spec.kernel_consts, cuda.ptr(p), cuda.ptr(q), cuda.ptr(out), n, cuda.stream(p)
-        )
-        cuda.check(status, "K6 point add planes")
-        cuda.count("K6")
+        cuda.launch("K6", "bz_point_add_planes", p, spec.kernel_consts, cuda.ptr(p), cuda.ptr(q), cuda.ptr(out), n)
+    return out
+
+
+# ------------------------------------------------------------------- K8
+
+
+def plain_step_chain(spec: FieldSpec, acc: torch.Tensor, pxy: torch.Tensor, heads: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of K8: for each step s,
+    acc = heads[s] ? lift(P) : acc + P by the incomplete mixed law, whose
+    P == P case (the first step after a head) gives the generic formula's
+    (0, 0, 0), the identity of the next step."""
+    lifted = lift_plain(spec, pxy)
+    for head in heads:
+        merged, _ = point_add_mixed_plain(spec, acc, pxy, complete=False)
+        acc = _select(head, lifted, merged)
+    return acc
+
+
+def step_chain(
+    spec: FieldSpec, acc: torch.Tensor, pxy: torch.Tensor, heads: torch.Tensor, steps_per_launch: int | None = None
+) -> torch.Tensor:
+    """K8: the chained bucket step over lanes. acc (N, 3, 8) Jacobian, pxy
+    (N, 2, 8) affine Montgomery rows (all-zero = identity), heads (S, N)
+    bool -> acc after the S steps (a new tensor). One thread holds a lane's
+    acc across ``steps_per_launch`` steps (None: all S in one launch; 1:
+    one launch per step, the reference's dataflow). A CUDA tensor launches
+    the kernel; a CPU tensor runs :func:`plain_step_chain`."""
+    n = acc.shape[0]
+    if acc.shape != (n, 3, L.NLIMBS) or pxy.shape != (n, 2, L.NLIMBS):
+        raise ValueError(f"expected acc (N, 3, 8) and pxy (N, 2, 8): {tuple(acc.shape)}, {tuple(pxy.shape)}")
+    if heads.dim() != 2 or heads.shape[1] != n or heads.dtype != torch.bool:
+        raise ValueError(f"heads must be (steps, {n}) bool, got {tuple(heads.shape)} {heads.dtype}")
+    if steps_per_launch is not None and steps_per_launch < 1:
+        raise ValueError(f"steps_per_launch must be >= 1, got {steps_per_launch}")
+    if not acc.is_cuda:
+        return plain_step_chain(spec, acc, pxy, heads)
+    from ..ops import cuda
+
+    out = acc.clone()
+    for t, what in ((out, "acc"), (pxy, "pxy")):
+        cuda.require(t, torch.int32, f"K8 step chain {what}")
+    cuda.require(heads, torch.bool, "K8 step chain heads")
+    steps = heads.shape[0]
+    per = steps if steps_per_launch is None else steps_per_launch
+    if n:
+        for s0 in range(0, steps, per):
+            cuda.launch(
+                "K8", "bz_step_chain", out,
+                spec.kernel_consts, cuda.ptr(out), cuda.ptr(pxy), cuda.ptr(heads), n, s0, min(s0 + per, steps),
+            )
     return out

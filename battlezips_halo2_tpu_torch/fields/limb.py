@@ -13,6 +13,10 @@ a CPU tensor. The plain version splits each limb into 16-bit halves held in
 int64, so every partial product and column sum stays exact; it computes
 the same canonical values as the kernel, bit for bit.
 
+Kernel K9 (``csrc/op_chain.cu``), :func:`op_chain`, applies one op ``reps``
+times per element, ``x = op(x, b)``: a latency probe of the field ops,
+with :func:`plain_op_chain` beside it.
+
 This module merges the reference's fields/limb.py and fields/limb_t.py; the
 host-exact counterpart is fields/host.py.
 """
@@ -242,12 +246,7 @@ def field_op(op: int, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, out=Non
     for t in (a, b, out):
         cuda.require(t, torch.int32, "K1 field op")
     if n:
-        lib = cuda.library()
-        status = lib.bz_field_op(
-            op, spec.kernel_consts, cuda.ptr(a), cuda.ptr(b), cuda.ptr(out), n, nb, cuda.stream(a)
-        )
-        cuda.check(status, "K1 field op")
-        cuda.count("K1")
+        cuda.launch("K1", "bz_field_op", a, op, spec.kernel_consts, cuda.ptr(a), cuda.ptr(b), cuda.ptr(out), n, nb)
     return out
 
 
@@ -301,3 +300,60 @@ def mont_pow(spec: FieldSpec, a, e: int):
 def mont_inv(spec: FieldSpec, a):
     """Inversion by Fermat (a^(p-2)); Montgomery form in and out."""
     return mont_pow(spec, a, spec.modulus - 2)
+
+
+# ------------------------------------------------------------------- K9
+
+# K9's ops: the field ops with a value (Montgomery product, add, sub and the
+# Montgomery reduction x -> x R^-1), then a wrapping limb-wise 32-bit add
+# and no op, which time the memory floor and the launch floor.
+CHAIN_OPS = {"mul": 0, "add": 1, "sub": 2, "redc": 3, "raw": 4, "noop": 5}
+VALUED_CHAIN_OPS = ("mul", "add", "sub", "redc")
+
+
+def _raw_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    w = ((a.to(torch.int64) & 0xFFFFFFFF) + (b.to(torch.int64) & 0xFFFFFFFF)) & 0xFFFFFFFF
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def plain_op_chain(op: str, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, reps: int = 32) -> torch.Tensor:
+    """The plain PyTorch version of K9: x = a, then ``reps`` times
+    x = op(x, b), elementwise over rows of limbs."""
+    step = {
+        "mul": lambda x: mont_mul_plain(spec, x, b),
+        "add": lambda x: add_plain(spec, x, b),
+        "sub": lambda x: sub_plain(spec, x, b),
+        "redc": lambda x: mont_mul_plain(spec, x, spec.const("one_plain", x.device)),
+        "raw": lambda x: _raw_add(x, b),
+        "noop": lambda x: x,
+    }[op]
+    x = a.clone()
+    for _ in range(reps):
+        x = step(x)
+    return x
+
+
+def op_chain(op: str, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, reps: int = 32) -> torch.Tensor:
+    """K9: ``reps`` chained ``x = op(x, b)`` per row of limbs (op in
+    :data:`CHAIN_OPS`; a and b canonical for the field ops), one thread per
+    row. A CUDA tensor launches the kernel; a CPU tensor runs
+    :func:`plain_op_chain`."""
+    if op not in CHAIN_OPS:
+        raise ValueError(f"unknown chain op {op!r}: expected one of {sorted(CHAIN_OPS)}")
+    if a.shape != b.shape or a.shape[-1] != NLIMBS:
+        raise ValueError(f"operands must match as (..., 8): {tuple(a.shape)}, {tuple(b.shape)}")
+    if reps < 0:
+        raise ValueError(f"reps must be >= 0, got {reps}")
+    if not a.is_cuda:
+        return plain_op_chain(op, spec, a, b, reps)
+    from ..ops import cuda
+
+    out = torch.empty_like(a)
+    for t in (a, b, out):
+        cuda.require(t, torch.int32, "K9 op chain")
+    n = a.numel() // NLIMBS
+    if n:
+        cuda.launch(
+            "K9", "bz_op_chain", a, CHAIN_OPS[op], spec.kernel_consts, cuda.ptr(a), cuda.ptr(b), cuda.ptr(out), n, reps
+        )
+    return out

@@ -8,7 +8,8 @@ temporary names and renames the library into place, so an interrupted
 build leaves nothing that a later one waits on.
 
 Every C entry launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` raises on anything but 0.
+``cudaGetLastError()``; :func:`launch` calls one with the tensors' device
+current and raises on anything but 0.
 
 ``launches`` counts, per kernel, the launches made since the last
 :func:`reset_launches`. Each wrapper adds one exactly where it launches,
@@ -36,7 +37,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")
 launches = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()
@@ -59,6 +60,10 @@ _SIGNATURES = {
     "bz_point_add_planes": (_P, _P, _P, _P, _I64, _P),
     # consts, complete, table, src, starts, out, flags, nb, stream
     "bz_msm_buckets": (_P, _INT, _P, _P, _P, _P, _P, _I64, _P),
+    # consts, acc (in place), pxy, heads, n, first step, end step, stream
+    "bz_step_chain": (_P, _P, _P, _P, _I64, _INT, _INT, _P),
+    # op, consts, a, b, out, n, reps, stream
+    "bz_op_chain": (_INT, _P, _P, _P, _P, _I64, _INT, _P),
 }
 
 
@@ -158,6 +163,18 @@ def stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def launch(kernel: str, entry: str, on: torch.Tensor, *args) -> None:
+    """Call the C entry ``entry(*args, stream)`` on the current stream of
+    ``on``'s device, with that device current: the library's CUDA runtime
+    launches on the calling thread's current device, which is cuda:0 in a
+    new thread whatever device the tensors are on. Raises on a CUDA error
+    and counts one launch of ``kernel``."""
+    with torch.cuda.device(on.device):
+        status = getattr(library(), entry)(*args, stream(on))
+    check(status, f"{kernel} {entry}")
+    count(kernel)
+
+
 def require(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` whose data
     is 16-byte aligned (the kernels move rows with 16-byte accesses)."""
@@ -173,8 +190,13 @@ def require(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
 
 def resolve_device(device=None) -> torch.device:
     """The device of an entry point: None means the CUDA card. A CUDA device
-    without a card raises; pass device="cpu" to run the plain versions."""
+    without a card raises; pass device="cpu" to run the plain versions. A
+    CUDA device gets its index ("cuda" is the current card), so that the
+    per-device key caches see one name per card."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev

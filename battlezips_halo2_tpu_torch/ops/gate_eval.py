@@ -18,7 +18,9 @@ loop over that stream; each instruction is one launch of kernel K1
 
 All ops are exact field ops, and the emission follows the same formula and
 fold order as plonk/arguments.py, so the quotient is bit-identical to the
-reference's.
+reference's. ``BatchQuotientEvaluator`` runs the program once for a batch
+of proofs under one key (plonk/batch_prover.py; a single proof is a batch
+of one).
 """
 
 from __future__ import annotations
@@ -310,8 +312,22 @@ def emit_vm(vk, schedule: ProofSchedule):
     return em.finalize()
 
 
-class QuotientEvaluator:
-    """Built once per proving key; __call__(polys, challenges) -> h coeffs."""
+class BatchQuotientEvaluator:
+    """Built once per proving key: the quotients of B proofs under that key,
+    one VM program for the whole batch; __call__(list of polys by key, list
+    of challenges) -> list of h coefficients.
+
+    * the pk-constant polynomials (the ``fixed`` and ``sigma`` keys) are
+      extended to the coset once, at the first call, and kept;
+    * each proof's polynomials are uploaded as length-n coefficients and
+      zero-padded to the extended size on the device;
+    * the register file is (n_regs, B, ext, 8), so a register is one
+      contiguous (B ext, 8) block and every VM instruction is one launch of
+      kernel K1 for the whole batch; the challenge registers hold each
+      proof's challenges along the B axis;
+    * the program is the reference's instruction stream, so each proof's h
+      coefficients are the reference's, bit for bit.
+    """
 
     def __init__(self, vk, schedule: ProofSchedule, device):
         cs = vk.cs
@@ -319,7 +335,11 @@ class QuotientEvaluator:
         self.domain = domain
         self.device = torch.device(device)
         self.keys = quotient_poly_keys(cs, schedule.num_perm_chunks)
-        self.key_index = {k: i for i, k in enumerate(self.keys)}
+        self.shared_keys = [k for k in self.keys if k[0] in ("fixed", "sigma")]
+        self.per_keys = [k for k in self.keys if k[0] not in ("fixed", "sigma")]
+        self._shared_index = {k: i for i, k in enumerate(self.shared_keys)}
+        self._per_index = {k: i for i, k in enumerate(self.per_keys)}
+        self._shared_ext = None
         ext = domain.extended_n
         self.rot_scale = ext // domain.n
         r = FP_SPEC.r_mod_p
@@ -336,27 +356,46 @@ class QuotientEvaluator:
         self.prog = prog.tolist()
         self.vm_size = (len(self.prog), self.n_regs)
 
-    def __call__(self, coeff_polys_by_key: dict, challenges: tuple) -> list[int]:
-        """coeff_polys_by_key: {key: coefficient int list};
-        challenges: (theta, beta, gamma, y). Returns h coefficients."""
+    def _extended(self, polys: list) -> torch.Tensor:
+        """Coefficient lists (each <= n long) -> (K, ext, 8) Montgomery
+        evaluations on the extended coset; the padding to ext is on the
+        device (poly/transforms.py::coeff_to_extended_limbs)."""
+        n = self.domain.n
+        flat = []
+        for poly in polys:
+            flat.extend(v % P for v in poly)
+            flat.extend([0] * (n - len(poly)))
+        coeffs = ints_to_limbs(flat, self.device).reshape(len(polys), n, L.NLIMBS)
+        return L.to_mont(FP_SPEC, coeff_to_extended_limbs(self.domain, coeffs))
+
+    def __call__(self, coeff_polys_by_key_list: list, challenges_list: list) -> list[list[int]]:
+        """coeff_polys_by_key_list: one {key: coefficient int list} per
+        proof; challenges_list: one (theta, beta, gamma, y) per proof.
+        Returns each proof's h coefficients."""
+        nb = len(coeff_polys_by_key_list)
+        if nb == 0 or nb != len(challenges_list):
+            raise ValueError(f"need one challenge tuple per proof: {nb} proofs, {len(challenges_list)} tuples")
         ext = self.domain.extended_n
         dev = self.device
-        flat = []
-        for key in self.keys:
-            poly = coeff_polys_by_key[key]
-            flat.extend(v % P for v in poly)
-            flat.extend([0] * (ext - len(poly)))
-        coeffs = ints_to_limbs(flat, dev).reshape(len(self.keys), ext, L.NLIMBS)
-        evals = L.to_mont(FP_SPEC, coeff_to_extended_limbs(self.domain, coeffs))
-        ch = L.to_mont(FP_SPEC, ints_to_limbs([c % P for c in challenges], dev))
-        chal = dict(zip(("theta", "beta", "gamma", "y"), ch))
+        if self._shared_ext is None:
+            self._shared_ext = self._extended([coeff_polys_by_key_list[0][k] for k in self.shared_keys])
+        per = self._extended([polys[k] for polys in coeff_polys_by_key_list for k in self.per_keys])
+        per = per.view(nb, len(self.per_keys), ext, L.NLIMBS)
+        flat_ch = [c % P for chs in challenges_list for c in chs]
+        ch = L.to_mont(FP_SPEC, ints_to_limbs(flat_ch, dev)).view(nb, 4, 1, L.NLIMBS)
+        chal = dict(zip(("theta", "beta", "gamma", "y"), ch.unbind(1)))
+
+        def evals_of(key):
+            if key in self._shared_index:
+                return self._shared_ext[self._shared_index[key]]
+            return per[:, self._per_index[key]]
 
         # register file: [0] = agg, [1 .. pins] = pinned inputs, then temps
-        regs = torch.zeros(self.n_regs, ext, L.NLIMBS, dtype=torch.int32, device=dev)
+        regs = torch.zeros((self.n_regs, nb, ext, L.NLIMBS), dtype=torch.int32, device=dev)
         for i, key in enumerate(self.pin_keys, start=1):
             if key[0] == "inp":
                 _, kind, index, rot = key
-                regs[i] = torch.roll(evals[self.key_index[(kind, index)]], -rot * self.rot_scale, 0)
+                regs[i] = torch.roll(evals_of((kind, index)), -rot * self.rot_scale, -2)
             elif key[0] == "const":
                 regs[i] = ints_to_limbs([key[1] * FP_SPEC.r_mod_p % P], dev)
             elif key[0] == "chal":
@@ -366,4 +405,13 @@ class QuotientEvaluator:
         for op, a, b, d in self.prog:
             L.field_op(op, FP_SPEC, regs[a], regs[b], out=regs[d])
         h_ext = L.mont_mul(FP_SPEC, regs[0], self.t_inv)
-        return limbs_to_ints(extended_to_coeff_limbs(self.domain, L.from_mont(FP_SPEC, h_ext)[None]))
+        ints = limbs_to_ints(extended_to_coeff_limbs(self.domain, L.from_mont(FP_SPEC, h_ext)))
+        return [ints[i * ext : (i + 1) * ext] for i in range(nb)]
+
+
+class QuotientEvaluator(BatchQuotientEvaluator):
+    """One proof's quotient: a batch of one. __call__(polys, challenges) ->
+    h coefficients."""
+
+    def __call__(self, coeff_polys_by_key: dict, challenges: tuple) -> list[int]:
+        return super().__call__([coeff_polys_by_key], [challenges])[0]

@@ -138,19 +138,11 @@ def bucket_sums(spec: FieldSpec, table, src, starts, complete: bool):
     out = torch.empty(nb, 3, L.NLIMBS, dtype=torch.int32, device=table.device)
     flags = torch.empty(nb, dtype=torch.int32, device=table.device)
     if nb:
-        status = cuda.library().bz_msm_buckets(
-            spec.kernel_consts,
-            int(complete),
-            cuda.ptr(table),
-            cuda.ptr(src),
-            cuda.ptr(starts),
-            cuda.ptr(out),
-            cuda.ptr(flags),
-            nb,
-            cuda.stream(table),
+        cuda.launch(
+            "K7" if complete else "K2", "bz_msm_buckets", table,
+            spec.kernel_consts, int(complete), cuda.ptr(table), cuda.ptr(src), cuda.ptr(starts), cuda.ptr(out),
+            cuda.ptr(flags), nb,
         )
-        cuda.check(status, "K2 MSM buckets")
-        cuda.count("K7" if complete else "K2")
     return out, flags
 
 

@@ -102,11 +102,7 @@ def butterfly_stage(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, stage: i
     cuda.require(tw, torch.int32, "K4 NTT twiddles")
     if b:
         logn = n.bit_length() - 1
-        status = cuda.library().bz_ntt_stage(
-            spec.kernel_consts, cuda.ptr(x), cuda.ptr(tw), b, logn, stage, cuda.stream(x)
-        )
-        cuda.check(status, "K4 NTT stage")
-        cuda.count("K4")
+        cuda.launch("K4", "bz_ntt_stage", x, spec.kernel_consts, cuda.ptr(x), cuda.ptr(tw), b, logn, stage)
 
 
 def butterfly_rows_plain(spec: FieldSpec, u: torch.Tensor, v: torch.Tensor, tw: torch.Tensor):
@@ -130,12 +126,10 @@ def butterfly_rows(spec: FieldSpec, u: torch.Tensor, v: torch.Tensor, tw: torch.
     out0, out1 = torch.empty_like(u), torch.empty_like(u)
     batch, n2 = u.shape[:2]
     if batch * n2:
-        status = cuda.library().bz_butterfly_rows(
-            spec.kernel_consts, cuda.ptr(u), cuda.ptr(v), cuda.ptr(tw), cuda.ptr(out0), cuda.ptr(out1),
-            batch, n2, cuda.stream(u),
+        cuda.launch(
+            "K5", "bz_butterfly_rows", u,
+            spec.kernel_consts, cuda.ptr(u), cuda.ptr(v), cuda.ptr(tw), cuda.ptr(out0), cuda.ptr(out1), batch, n2,
         )
-        cuda.check(status, "K5 butterfly rows")
-        cuda.count("K5")
     return out0, out1
 
 

@@ -79,17 +79,29 @@ def _commit_limbs(params: Params, coeffs: torch.Tensor, blinds: list) -> list[Po
     return msm_many_table(VESTA, params.gw_table(), scalars)
 
 
-def commit_many(params: Params, polys: list, blinds: list) -> list[Point]:
-    """Commit a batch of coefficient polynomials (each <= n long)."""
+def _groups(count: int, chunk: int | None):
+    """[start, stop) spans of at most ``chunk`` items (None: one span)."""
+    step = count if chunk is None else chunk
+    if step < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    return [(i, min(i + step, count)) for i in range(0, count, step)]
+
+
+def commit_many(params: Params, polys: list, blinds: list, chunk: int | None = None) -> list[Point]:
+    """Commit a batch of coefficient polynomials (each <= n long), ``chunk``
+    of them per batched device MSM (None: all at once)."""
     assert len(polys) == len(blinds)
     if not polys:
         return []
     assert all(len(p) <= params.n for p in polys)
-    flat = []
-    for p in polys:
-        flat += [v % P for v in p] + [0] * (params.n - len(p))
-    coeffs = ints_to_limbs(flat, params.device).reshape(len(polys), params.n, NLIMBS)
-    return _commit_limbs(params, coeffs, blinds)
+    points = []
+    for a, b in _groups(len(polys), chunk):
+        flat = []
+        for p in polys[a:b]:
+            flat += [v % P for v in p] + [0] * (params.n - len(p))
+        coeffs = ints_to_limbs(flat, params.device).reshape(b - a, params.n, NLIMBS)
+        points += _commit_limbs(params, coeffs, blinds[a:b])
+    return points
 
 
 def commit(params: Params, coeffs: list[int], blind: int) -> Point:
@@ -97,10 +109,11 @@ def commit(params: Params, coeffs: list[int], blind: int) -> Point:
     return commit_many(params, [coeffs], [blind])[0]
 
 
-def commit_lagrange_many(params: Params, domain, values_list: list, blinds: list):
-    """Lagrange columns -> (coefficient polys, commitments): the iNTT and
-    the commitment MSMs run on the device in one pass over the batch, and
-    the coefficients come back to the host once."""
+def commit_lagrange_many(params: Params, domain, values_list: list, blinds: list, chunk: int | None = None):
+    """Lagrange columns -> (coefficient polys, commitments): per group of
+    ``chunk`` columns (None: all at once) the iNTT and the commitment MSMs
+    run on the device in one pass, and the coefficients come back to the
+    host once."""
     from ..poly.transforms import lagrange_to_coeff_limbs
 
     assert len(values_list) == len(blinds)
@@ -108,12 +121,15 @@ def commit_lagrange_many(params: Params, domain, values_list: list, blinds: list
         return [], []
     n = domain.n
     assert all(len(v) == n for v in values_list)
-    flat = [x % P for v in values_list for x in v]
-    vals = ints_to_limbs(flat, params.device).reshape(len(values_list), n, NLIMBS)
-    coeffs = lagrange_to_coeff_limbs(domain, vals)
-    ints = limbs_to_ints(coeffs)
-    polys = [ints[i : i + n] for i in range(0, len(ints), n)]
-    return polys, _commit_limbs(params, coeffs, blinds)
+    polys, points = [], []
+    for a, b in _groups(len(values_list), chunk):
+        flat = [x % P for v in values_list[a:b] for x in v]
+        vals = ints_to_limbs(flat, params.device).reshape(b - a, n, NLIMBS)
+        coeffs = lagrange_to_coeff_limbs(domain, vals)
+        ints = limbs_to_ints(coeffs)
+        polys += [ints[i : i + n] for i in range(0, len(ints), n)]
+        points += _commit_limbs(params, coeffs, blinds[a:b])
+    return polys, points
 
 
 def lagrange_basis_commitment(params: Params, domain, row: int) -> Point:

@@ -43,6 +43,15 @@ def create_proof(params, pk, circuit, instances, rng):
     return _impl(params, pk, circuit, instances, rng)
 
 
+def create_proofs_batched(params, pk, circuits, instances_list, rngs, engine=None):
+    """Batch prover, B proofs under one key phase by phase, each
+    bit-identical to create_proof — lazy import (plonk.batch_prover pulls
+    in pcs/ops)."""
+    from .batch_prover import create_proofs_batched as _impl
+
+    return _impl(params, pk, circuits, instances_list, rngs, engine)
+
+
 def verify_proof(params, vk, proof, instances):
     """Verifier — lazy import (plonk.verifier pulls in pcs/ops)."""
     from .verifier import verify_proof as _impl
@@ -53,6 +62,7 @@ def verify_proof(params, vk, proof, instances):
 __all__ = [
     "keygen",
     "create_proof",
+    "create_proofs_batched",
     "verify_proof",
     "AssignedCell",
     "Assignment",

@@ -1,67 +1,23 @@
-"""The PLONK prover: full proof pipeline.
+"""The PLONK prover of one proof, and the host helpers its phases share.
 
 Framework analog of ``halo2_proofs::plonk::create_proof``: witness
 synthesis -> blinded advice commitments -> lookup permute + product ->
 permutation grand products (chunked) -> vanishing argument (quotient over
 the extended coset) -> evaluations at the challenge point -> multiopen ->
-final IPA argument.
-
-Circuit synthesis and the protocol run on the host; NTTs, commitments and
-the quotient (constraint evaluation, y-fold and Z_H division as one
-bytecode program, ops/gate_eval.py) run on ``params.device``. Proofs are
-bit-identical to the reference's for the same keys and rng.
+final IPA argument. One proof is a batch of one through
+plonk/batch_prover.py, which holds the phases: the same transcript, rng
+draws and device work, so a proof is bit-identical to the reference's for
+the same keys and rng, alone or in a batch.
 """
 
 from __future__ import annotations
 
-import threading
-import time
-
 import numpy as np
 
-from ..config import config as _config
-from ..curves.host import VESTA
 from ..fields.host import FP
-from ..pcs.ipa import Params, commit, commit_lagrange_many, commit_many
-from ..pcs.multiopen import Query, multiopen_prove
-from ..poly.domain import eval_poly_coeffs
-from .arguments import ProofSchedule, evaluate_expression, permute_lookup_inputs
-from .assignment import Assignment, Layouter
+from ..pcs.ipa import Params
 from .circuit import ConstraintSystem
-from .expression import ColumnType
 from .keys import ProvingKey
-from .transcript import TranscriptWrite
-
-_evaluator_lock = threading.Lock()
-
-
-def _get_quotient_evaluator(vk, schedule, device):
-    """One evaluator per (verifying key, device), cached on the vk."""
-    cache = vk.__dict__.setdefault("_quotient_evaluators", {})
-    key = str(device)
-    if key not in cache:
-        with _evaluator_lock:
-            if key not in cache:
-                from ..ops.gate_eval import QuotientEvaluator
-
-                cache[key] = QuotientEvaluator(vk, schedule, device)
-    return cache[key]
-
-
-class _Phase:
-    """Span logger for the prover pipeline (BZ_TORCH_TRACE=1)."""
-
-    def __init__(self):
-        self.t = time.time()
-
-    def mark(self, name: str):
-        if _config().trace_prover:
-            now = time.time()
-            print(f"[prover] {name}: {now - self.t:.2f}s", flush=True)
-            self.t = now
-        else:
-            self.t = time.time()
-
 
 P = FP.modulus
 
@@ -92,319 +48,12 @@ def create_proof(
     instances: list[list[int]],
     rng,
 ) -> bytes:
-    vk = pk.vk
-    cs: ConstraintSystem = vk.cs
-    domain = vk.domain
-    n = params.n
-    usable = cs.usable_rows(n)
-    schedule = ProofSchedule.build(cs)
-    phase = _Phase()
-    transcript = TranscriptWrite(VESTA)
-    transcript.common_scalar(vk.digest)
+    """Prove ``circuit`` with public input ``instances`` and blinding
+    randomness ``rng``: a batch of one on the device engine, whatever
+    ``BZ_BATCH_ENGINE`` says."""
+    from .batch_prover import create_proofs_batched
 
-    # --- instance commitments (recomputed by the verifier) -----------------
-    instance_values = []
-    for ci in range(cs.num_instance):
-        vals = list(instances[ci]) if ci < len(instances) else []
-        assert len(vals) <= usable
-        instance_values.append([v % P for v in vals] + [0] * (n - len(vals)))
-    instance_polys, instance_points = (
-        commit_lagrange_many(params, domain, instance_values, [0] * len(instance_values))
-        if instance_values
-        else ([], [])
-    )
-    for point in instance_points:
-        transcript.common_point(point)
-
-    phase.mark("instance")
-    # --- witness synthesis + advice commitments ---------------------------
-    assignment = Assignment(cs, n)
-    layouter = Layouter(assignment)
-    circuit.synthesize(_configure_cached(cs, circuit), layouter)
-    layouter.finalize()
-
-    advice_values = []
-    for col in assignment.advice:
-        vals = [0 if v is None else v % P for v in col]
-        for row in range(usable, n):
-            vals[row] = FP.random(rng)
-        advice_values.append(vals)
-    advice_blinds = [FP.random(rng) for _ in advice_values]
-    advice_polys, advice_points = commit_lagrange_many(
-        params, domain, advice_values, advice_blinds
-    )
-    for point in advice_points:
-        transcript.write_point(point)
-
-    phase.mark("advice synth+commit")
-    fixed_values = pk.fixed_values
-    fixed_polys = pk.fixed_polys
-
-    def lagrange_matrix(column):
-        if column.kind == ColumnType.ADVICE:
-            return _obj_array(advice_values[column.index])
-        if column.kind == ColumnType.FIXED:
-            return _obj_array(fixed_values[column.index])
-        return _obj_array(instance_values[column.index])
-
-    # --- lookups: compress + permute --------------------------------------
-    theta = transcript.squeeze_challenge()
-    lookups = []
-    for lk in cs.lookups:
-        def eval_lagrange_expr(expr):
-            return evaluate_expression(
-                cs,
-                expr,
-                cell_fn=lambda col, rot: np.roll(lagrange_matrix(col), -rot),
-                selector_as_fixed_fn=lambda idx: _obj_array(fixed_values[idx]),
-            )
-
-        a_comp = np.zeros(n, dtype=object)
-        s_comp = np.zeros(n, dtype=object)
-        for i_expr, t_expr in lk.mapping:
-            a_comp = (a_comp * theta + eval_lagrange_expr(i_expr)) % P
-            s_comp = (s_comp * theta + eval_lagrange_expr(t_expr)) % P
-        a_act = [int(v) for v in a_comp[:usable]]
-        s_act = [int(v) for v in s_comp[:usable]]
-        a_perm, s_perm = permute_lookup_inputs(a_act, s_act)
-        tail = [FP.random(rng) for _ in range(n - usable)]
-        tail2 = [FP.random(rng) for _ in range(n - usable)]
-        lookups.append(
-            {
-                "a_compressed": [int(v) for v in a_comp],
-                "s_compressed": [int(v) for v in s_comp],
-                "a_perm": a_perm + tail,
-                "s_perm": s_perm + tail2,
-            }
-        )
-    lookup_perm_polys = []
-    if lookups:
-        blinds = [FP.random(rng) for _ in range(2 * len(lookups))]
-        flat, points = commit_lagrange_many(
-            params, domain, [v for lk in lookups for v in (lk["a_perm"], lk["s_perm"])], blinds
-        )
-        for i in range(len(lookups)):
-            transcript.write_point(points[2 * i])
-            transcript.write_point(points[2 * i + 1])
-            lookup_perm_polys.append((flat[2 * i], blinds[2 * i], flat[2 * i + 1], blinds[2 * i + 1]))
-
-    phase.mark("lookups permute+commit")
-    beta = transcript.squeeze_challenge()
-    gamma = transcript.squeeze_challenge()
-
-    # --- permutation grand products (chunked) -----------------------------
-    perm = vk.permutation
-    chunk_len = schedule.chunk_len
-    chunk_cols = [perm.columns[i : i + chunk_len] for i in range(0, len(perm.columns), chunk_len)]
-    chunk_sigmas = [perm.sigmas[i : i + chunk_len] for i in range(0, len(perm.sigmas), chunk_len)]
-    from .keys import DELTA
-
-    omega = domain.omega
-    perm_z_values = []
-    carry = 1  # chunks chain multiplicatively
-    # vectorized over rows: numpy object arrays of exact ints (the per-row
-    # Python double loop costed ~0.5s/proof at k=11)
-    w_pows = np.empty(usable, dtype=object)
-    acc_w = 1
-    for i in range(usable):
-        w_pows[i] = acc_w
-        acc_w = acc_w * omega % P
-    for cols, sigmas in zip(chunk_cols, chunk_sigmas):
-        col_offsets = [perm.columns.index(c) for c in cols]
-        nums = np.ones(usable, dtype=object)
-        dens = np.ones(usable, dtype=object)
-        for c_idx, col in enumerate(cols):
-            if col.kind == ColumnType.ADVICE:
-                vals = advice_values[col.index]
-            elif col.kind == ColumnType.FIXED:
-                vals = fixed_values[col.index]
-            else:
-                vals = instance_values[col.index]
-            v = _obj_array(vals[:usable])
-            j = col_offsets[c_idx]
-            delta_beta = beta * pow(DELTA, j, P) % P
-            sig = _obj_array(sigmas[c_idx][:usable])
-            nums = nums * ((v + delta_beta * w_pows + gamma) % P) % P
-            dens = dens * ((v + beta * sig + gamma) % P) % P
-        z = [0] * n
-        z[: usable + 1] = _grand_product_prefix(nums, dens, carry)
-        carry = z[usable]
-        for row in range(usable + 1, n):
-            z[row] = FP.random(rng)
-        perm_z_values.append(z)
-    perm_z_blinds = [FP.random(rng) for _ in perm_z_values]
-    perm_z_polys, perm_z_points = (
-        commit_lagrange_many(params, domain, perm_z_values, perm_z_blinds)
-        if perm_z_values
-        else ([], [])
-    )
-    for point in perm_z_points:
-        transcript.write_point(point)
-
-    phase.mark("permutation z")
-    # --- lookup grand products --------------------------------------------
-    lookup_z_polys = []
-    for lk in lookups:
-        a_c = _obj_array(lk["a_compressed"][:usable])
-        s_c = _obj_array(lk["s_compressed"][:usable])
-        a_p = _obj_array(lk["a_perm"][:usable])
-        s_p = _obj_array(lk["s_perm"][:usable])
-        nums = (a_c + beta) * (s_c + gamma) % P
-        dens = (a_p + beta) * (s_p + gamma) % P
-        z = [0] * n
-        z[: usable + 1] = _grand_product_prefix(nums, dens, 1)
-        for row in range(usable + 1, n):
-            z[row] = FP.random(rng)
-        lk["z_values"] = z
-        lookup_z_polys.append(z)
-    if lookup_z_polys:
-        zb = [FP.random(rng) for _ in lookup_z_polys]
-        zp, zpoints = commit_lagrange_many(params, domain, lookup_z_polys, zb)
-        for point in zpoints:
-            transcript.write_point(point)
-        lookup_z_polys = list(zip(zp, zb))
-
-    phase.mark("lookup z")
-    # --- vanishing argument ------------------------------------------------
-    random_poly = [FP.random(rng) for _ in range(n)]
-    random_blind = FP.random(rng)
-    transcript.write_point(commit(params, random_poly, random_blind))
-    y = transcript.squeeze_challenge()
-
-    # --- quotient over the extended coset: ONE bytecode program evaluates
-    # every constraint, folds with y, divides by Z_H and returns the
-    # quotient coefficients (ops/gate_eval.py)
-    evaluator = _get_quotient_evaluator(vk, schedule, params.device)
-    polys_by_key = {}
-    for i, poly in enumerate(advice_polys):
-        polys_by_key[("advice", i)] = poly
-    for i, poly in enumerate(fixed_polys):
-        polys_by_key[("fixed", i)] = poly
-    for i, poly in enumerate(instance_polys):
-        polys_by_key[("instance", i)] = poly
-    for i, poly in enumerate(perm_z_polys):
-        polys_by_key[("perm_z", i)] = poly
-    for i, poly in enumerate(perm.sigma_polys):
-        polys_by_key[("sigma", i)] = poly
-    for i, (a_poly, _, s_poly, _) in enumerate(lookup_perm_polys):
-        polys_by_key[("lk_a", i)] = a_poly
-        polys_by_key[("lk_s", i)] = s_poly
-    for i, (z_poly, _) in enumerate(lookup_z_polys):
-        polys_by_key[("lk_z", i)] = z_poly
-    h_coeffs = evaluator(polys_by_key, (theta, beta, gamma, y))
-    phase.mark("quotient")
-    num_pieces = domain.extended_n // n
-    h_pieces = [h_coeffs[i * n : (i + 1) * n] for i in range(num_pieces)]
-    h_blinds = [FP.random(rng) for _ in h_pieces]
-    for point in commit_many(params, h_pieces, h_blinds):
-        transcript.write_point(point)
-
-    phase.mark("h commit")
-    x = transcript.squeeze_challenge()
-
-    # --- evaluations (halo2 0.2.0 write order: instance, advice, fixed,
-    # vanishing random_eval, sigmas, permutation z sets, lookups) -----------
-    def rot_point(rot):
-        return domain.rotate_point(x, rot)
-
-    instance_evals = {}
-    for col, rot in schedule.instance_queries:
-        instance_evals[(col, rot)] = eval_poly_coeffs(instance_polys[col], rot_point(rot))
-        transcript.write_scalar(instance_evals[(col, rot)])
-    advice_evals = {}
-    for col, rot in schedule.advice_queries:
-        advice_evals[(col, rot)] = eval_poly_coeffs(advice_polys[col], rot_point(rot))
-        transcript.write_scalar(advice_evals[(col, rot)])
-    fixed_evals = {}
-    for col, rot in schedule.fixed_queries:
-        fixed_evals[(col, rot)] = eval_poly_coeffs(fixed_polys[col], rot_point(rot))
-        transcript.write_scalar(fixed_evals[(col, rot)])
-
-    # vanishing argument, part 2 (halo2 vanishing/prover.rs evaluate): the h
-    # pieces collapse by x^n into ONE polynomial opened at x; no h evals are
-    # written — the verifier derives the expected h(x) from the identity
-    xn = pow(x, n, P)
-    h_acc = np.zeros(n, dtype=object)
-    h_blind_acc = 0
-    for piece, pblind in zip(reversed(h_pieces), reversed(h_blinds)):
-        arr = np.empty(len(piece), dtype=object)
-        arr[:] = piece
-        h_acc = h_acc * xn % P
-        h_acc[: len(piece)] = (h_acc[: len(piece)] + arr) % P
-        h_blind_acc = (h_blind_acc * xn + pblind) % P
-    h_collapsed = [int(v) for v in h_acc]
-    h_collapsed_eval = eval_poly_coeffs(h_collapsed, x)
-
-    random_eval = eval_poly_coeffs(random_poly, x)
-    transcript.write_scalar(random_eval)
-
-    sigma_evals = [eval_poly_coeffs(p, x) for p in perm.sigma_polys]
-    for ev in sigma_evals:
-        transcript.write_scalar(ev)
-    x_next = rot_point(1)
-    x_last_rot = domain.rotate_point(x, usable)
-    perm_z_evals = []
-    for c, poly in enumerate(perm_z_polys):
-        z_x = eval_poly_coeffs(poly, x)
-        z_wx = eval_poly_coeffs(poly, x_next)
-        transcript.write_scalar(z_x)
-        transcript.write_scalar(z_wx)
-        entry = {"z": z_x, "z_next": z_wx}
-        if c < len(perm_z_polys) - 1:
-            entry["last"] = eval_poly_coeffs(poly, x_last_rot)
-        perm_z_evals.append(entry)
-    # halo2 permutation/prover.rs: the ω^(-(b+1))x evals come AFTER all the
-    # (z@x, z@ωx) pairs, in REVERSE set order skipping the final set
-    for c in range(len(perm_z_polys) - 2, -1, -1):
-        transcript.write_scalar(perm_z_evals[c]["last"])
-
-    x_prev = rot_point(-1)
-    lookup_evals = []
-    for (z_poly, _), (a_poly, _, s_poly, _) in zip(lookup_z_polys, lookup_perm_polys):
-        ev = {
-            "z": eval_poly_coeffs(z_poly, x),
-            "z_next": eval_poly_coeffs(z_poly, x_next),
-            "a_perm": eval_poly_coeffs(a_poly, x),
-            "a_perm_prev": eval_poly_coeffs(a_poly, x_prev),
-            "s_perm": eval_poly_coeffs(s_poly, x),
-        }
-        for key in ("z", "z_next", "a_perm", "a_perm_prev", "s_perm"):
-            transcript.write_scalar(ev[key])
-        lookup_evals.append(ev)
-
-    phase.mark("evaluations")
-    # --- multiopen + IPA (halo2 prover.rs open order: instance, advice,
-    # permutation sets, lookups, then fixed, sigmas, vanishing h+random) ----
-    queries: list[Query] = []
-    for col, rot in schedule.instance_queries:
-        queries.append(Query(instance_polys[col], 0, rot_point(rot), instance_evals[(col, rot)]))
-    for col, rot in schedule.advice_queries:
-        queries.append(Query(advice_polys[col], advice_blinds[col], rot_point(rot), advice_evals[(col, rot)]))
-    for c, poly in enumerate(perm_z_polys):
-        queries.append(Query(poly, perm_z_blinds[c], x, perm_z_evals[c]["z"]))
-        queries.append(Query(poly, perm_z_blinds[c], x_next, perm_z_evals[c]["z_next"]))
-    for c in range(len(perm_z_polys) - 2, -1, -1):
-        queries.append(Query(perm_z_polys[c], perm_z_blinds[c], x_last_rot, perm_z_evals[c]["last"]))
-    # lookup open order (halo2 lookup/prover.rs): z@x, a'@x, s'@x, a'@ω⁻¹x, z@ωx
-    for (z_poly, z_blind), (a_poly, a_blind, s_poly, s_blind), ev in zip(
-        lookup_z_polys, lookup_perm_polys, lookup_evals
-    ):
-        queries.append(Query(z_poly, z_blind, x, ev["z"]))
-        queries.append(Query(a_poly, a_blind, x, ev["a_perm"]))
-        queries.append(Query(s_poly, s_blind, x, ev["s_perm"]))
-        queries.append(Query(a_poly, a_blind, x_prev, ev["a_perm_prev"]))
-        queries.append(Query(z_poly, z_blind, x_next, ev["z_next"]))
-    for col, rot in schedule.fixed_queries:
-        queries.append(Query(fixed_polys[col], 0, rot_point(rot), fixed_evals[(col, rot)]))
-    for j, poly in enumerate(perm.sigma_polys):
-        queries.append(Query(poly, 0, x, sigma_evals[j]))
-    queries.append(Query(h_collapsed, h_blind_acc, x, h_collapsed_eval))
-    queries.append(Query(random_poly, random_blind, x, random_eval))
-
-    phase.mark("query build")
-    multiopen_prove(params, transcript, queries, rng)
-    phase.mark("multiopen+ipa")
-    return transcript.finalize()
+    return create_proofs_batched(params, pk, [circuit], [instances], [rng], engine="device")[0]
 
 
 _config_cache: dict = {}

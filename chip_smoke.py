@@ -6,11 +6,14 @@ NVIDIA card.
 
 from the root of a checkout. In order, it
 
-1. builds the CUDA kernels of ``battlezips_halo2_tpu_torch/csrc`` with nvcc;
-2. holds every kernel but K5 bit-exact (tolerance 0) against its plain
-   PyTorch version on the same CUDA tensors, including the identity, P == Q
-   and P == -Q cases of the point kernels, and times both;
-3. drives the port's main path through its public API, reading the
+1. builds the CUDA kernels of ``battlezips_halo2_tpu_torch/csrc`` with nvcc,
+   and reads the card's integer multiply rate (SMs, maximum SM clock) and
+   the multiplies of one Montgomery product (SASS of the built library) for
+   the operations bounds;
+2. holds K1-K4, K6 and K7 bit-exact (tolerance 0) against their plain
+   PyTorch versions on the same CUDA tensors, including the identity,
+   P == Q and P == -Q cases of the point kernels, and times both;
+3. drives the port's proof path through its public API, reading the
    kernels' launch counts around every phase:
 
    - the shot circuit (k = 11): keys, ``api.prove_shot`` with
@@ -25,13 +28,19 @@ from the root of a checkout. In order, it
    - the same board proofs under ``BZ_ROW_NTT=1 BZ_ROW_MSM=1`` (the
      reference's row-layout configuration): the same golden bytes, accepted
      by ``verify_board``, with K5, K6 and K7 launched and K2, K3 and K4 not;
-   - a game session (``api.prove_session``: one board, two shots) that
-     ``api.verify_session`` accepts.
+   - a game session of one board and four shots (``api.prove_session``)
+     sequential, batched (the batch prover), batched with two workers (two
+     sub-batches), batched with the per-proof tail on two threads and with
+     ``dp_devices=1``: equal bytes, each accepted by ``api.verify_session``.
 
-   Every kernel must have launched on this path;
+   K1-K7 must each have launched on this path;
 4. holds K5 bit-exact against its plain version at the board's own
    extended-domain shape (read from the board's vk), and times it;
-5. prints a JSON line of per-kernel numbers, the card's name and power
+5. drives the microbenchmark path, ``tools/torch_exp_step_t.py`` at the
+   reference's shapes, which holds K8 (one launch, and one launch per
+   step) and K9 (every op) bit-exact against their plain chains and times
+   them; K8 and K9 must each have launched on this path;
+6. prints a JSON line of per-kernel numbers, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or outside a checkout, it exits non-zero and prints
@@ -53,13 +62,26 @@ PACKAGE = ROOT / "battlezips_halo2_tpu_torch"
 GOLDEN = ROOT / "tests" / "golden" / "shot_k11.json"
 GOLDEN_BOARD = ROOT / "tests" / "golden" / "board_k12.json"
 PALLAS_KERNELS = "battlezips_halo2_tpu/ops/pallas_kernels.py"
+EXP_STEP_T = "tools/exp_step_t.py"
+MICROBENCHMARK = ROOT / "tools" / "torch_exp_step_t.py"
 
-# NVIDIA H100 SXM data sheet (dense, 700 W): HBM rate; the 32-bit integer
-# multiply-adds of the field kernels are counted as 2 operations each
-# against the non-tensor FP32 peak, which no integer pipe exceeds.
+# NVIDIA H100 SXM data sheet (dense, 700 W): the HBM rate. The field
+# kernels are integer multiply chains: their operations bound is the card's
+# 32-bit integer multiply-add rate, 64 results per SM per clock on compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput table), times the SMs and the maximum SM clock, both read from
+# the card (card_int_rate). A 32 x 32 -> 64-bit limb product is two results,
+# the low and the high word.
 HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
+INT_RESULTS_PER_SM_CLOCK = 64
 MAD_PER_MONT_MUL = 2 * 8 * 8 + 8  # CIOS: a * b, m * p, m per word
+# set by main() from the card and from the SASS of the built kernels
+OPS_PER_S = None  # 32-bit integer results per second
+MONT_MUL_RESULTS = None  # multiply results of one Montgomery product
+# per element of K9's ops, beside mul: redc is mul without the 64 wide
+# a * b products; add and sub are 8 limb adds, 8 limb subtracts and 8
+# selects; raw is 8 limb adds; noop does nothing
+CHAIN_OP_RESULTS = {"add": 24, "sub": 24, "raw": 8, "noop": 0}
 
 KERNELS = {
     "K1": ("field_op (Montgomery mul / add / sub)", "csrc/field_ops.cu", f"{PALLAS_KERNELS}:263"),
@@ -70,7 +92,11 @@ KERNELS = {
     "K6": ("point_add_planes (complete Jacobian, coordinate planes)", "csrc/point_add_planes.cu",
            f"{PALLAS_KERNELS}:167"),
     "K7": ("msm_buckets complete variant", "csrc/msm_buckets.cu", f"{PALLAS_KERNELS}:227"),
+    "K8": ("step_chain (chained incomplete bucket step)", "csrc/step_chain.cu", f"{EXP_STEP_T}:110"),
+    "K9": ("op_chain (chained field ops)", "csrc/op_chain.cu", f"{EXP_STEP_T}:210"),
 }
+PROOF_PATH_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+MICRO_PATH_KERNELS = ("K8", "K9")
 
 GOLDEN_PLACEMENTS = [(3, 3, True), (5, 4, False), (0, 1, False), (0, 5, True), (6, 1, False)]
 ROW_FLAGS = ("BZ_ROW_NTT", "BZ_ROW_MSM")
@@ -146,7 +172,7 @@ def check_k1(dev, rng: random.Random, rows: int, time_rows: int) -> dict:
     out = a.clone()
     ms = cuda_ms(lambda: L.field_op(L.OP_MUL, spec, a, b, out=out), 200)
     plain = cuda_ms(lambda: L.plain_field_op(L.OP_MUL, spec, a, b), 5)
-    bms, by = bound_ms(time_rows * 3 * 32, time_rows * 2 * MAD_PER_MONT_MUL)
+    bms, by = bound_ms(time_rows * 3 * 32, time_rows * MONT_MUL_RESULTS)
     shape = f"mont_mul over ({time_rows}, 8) Fp"
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "shape": shape}
 
@@ -186,7 +212,7 @@ def check_k4(dev, rng: random.Random, sizes, time_batch: int, time_logn: int) ->
     ms = cuda_ms(lambda: D.butterfly_stage(spec, x, tw, stage), 50)
     plain = cuda_ms(lambda: D.butterfly_stage_plain(spec, x, tw, stage), 2)
     nbytes = 2 * time_batch * n * 32 + tw.shape[0] * 32
-    bms, by = bound_ms(nbytes, time_batch * (n // 2) * 2 * MAD_PER_MONT_MUL)
+    bms, by = bound_ms(nbytes, time_batch * (n // 2) * MONT_MUL_RESULTS)
     shape = f"one stage of ({time_batch}, 2^{time_logn}) Fp"
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "shape": shape}
 
@@ -248,7 +274,7 @@ def check_k3(dev, rng: random.Random, lanes: int) -> dict:
     R, S = P[generic:].contiguous(), Q[generic:].contiguous()  # generic lanes only
     ms = cuda_ms(lambda: C.point_add(spec, R, S, out=out[: R.shape[0]]), 100)
     plain = cuda_ms(lambda: C.point_add_plain(spec, R, S), 2)
-    bms, by = bound_ms(R.shape[0] * 3 * 96, R.shape[0] * 16 * 2 * MAD_PER_MONT_MUL)
+    bms, by = bound_ms(R.shape[0] * 3 * 96, R.shape[0] * 16 * MONT_MUL_RESULTS)
     shape = f"{R.shape[0]} generic lanes, Vesta"
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "shape": shape}
 
@@ -275,7 +301,7 @@ def check_k6(dev, rng: random.Random, lanes: int) -> dict:
     out = torch.empty_like(R)
     ms = cuda_ms(lambda: C.point_add_planes(spec, R, S, out=out), 100)
     plain = cuda_ms(lambda: C.point_add_planes_plain(spec, R, S), 2)
-    bms, by = bound_ms(R.shape[1] * 3 * 96, R.shape[1] * 16 * 2 * MAD_PER_MONT_MUL)
+    bms, by = bound_ms(R.shape[1] * 3 * 96, R.shape[1] * 16 * MONT_MUL_RESULTS)
     shape = f"{R.shape[1]} generic lanes as (3, lanes, 8) planes, Vesta"
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "shape": shape}
 
@@ -319,7 +345,7 @@ def check_k5(dev, rng: random.Random, sizes, time_batch: int, time_logn: int) ->
     ms = cuda_ms(lambda: D.butterfly_rows(spec, u, v, tw), 50)
     plain = cuda_ms(lambda: D.butterfly_rows_plain(spec, u, v, tw), 2)
     pairs = time_batch * (n // 2)
-    bms, by = bound_ms(4 * pairs * 32 + tw.shape[0] * 32, pairs * 2 * MAD_PER_MONT_MUL)
+    bms, by = bound_ms(4 * pairs * 32 + tw.shape[0] * 32, pairs * MONT_MUL_RESULTS)
     shape = f"one stage of ({time_batch}, 2^{time_logn}) Fp: u, v ({time_batch}, 2^{time_logn - 1}, 8)"
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "shape": shape}
 
@@ -388,7 +414,7 @@ def check_k2_k7(dev, rng: random.Random, n_points: int, batch: int) -> tuple[dic
         plain = cuda_ms(lambda: M.bucket_sums_plain(spec, tab, src_t, starts_t, complete), 1)
         adds = live_rows - int((starts_t[1:] > starts_t[:-1]).sum())  # rows after each head
         nbytes = live_rows * (64 + 4) + nb * (4 + 96 + 4)
-        bms, by = bound_ms(nbytes, adds * (11 if not complete else 12) * 2 * MAD_PER_MONT_MUL)
+        bms, by = bound_ms(nbytes, adds * (11 if not complete else 12) * MONT_MUL_RESULTS)
         shape = f"{batch} MSMs x {n_points} points, c = {c}: {nb} buckets, {live_rows} rows"
         rows[name] = {
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "shape": shape
@@ -515,26 +541,145 @@ def run_board_rows(dev, timed: Phases) -> dict:
     return delta
 
 
-def run_session(dev, timed: Phases) -> None:
+def _session_bytes(session) -> list:
+    return [p.proof for p in session.board_proofs + session.shot_proofs]
+
+
+def run_sessions(dev, timed: Phases) -> dict:
+    """One game of four shots through api.prove_session: sequential, batched
+    (the batch prover), batched with two workers (two sub-batches of two
+    shots), batched with the per-proof tail on two threads
+    (BZ_BATCH_TAIL_WORKERS=2), and sequential with dp_devices=1 (the first
+    card). Every run must give the sequential run's bytes, and
+    verify_session must accept each. -> the session launches, by run."""
+    import torch
+
     from battlezips_halo2_tpu_torch import api
 
-    session = timed(
-        "prove_session (1 game, 2 shots)",
-        lambda: api.prove_session([GOLDEN_PLACEMENTS], shots_per_game=2, trapdoors=[0xBEEF], seed=5, device=dev),
-    )
-    if (len(session.board_proofs), len(session.shot_proofs)) != (1, 2):
-        raise AssertionError("prove_session made the wrong number of proofs")
-    if not timed("verify_session", lambda: api.verify_session(session, device=dev)):
-        raise AssertionError("verify_session rejected the session")
+    if api._dp_devices(1) != [torch.device("cuda", 0)]:
+        raise AssertionError(f"dp_devices=1 resolved to {api._dp_devices(1)}, not the first card")
+    runs = {  # tag: (prove_session options, environment for the run)
+        "sequential": (dict(batched=False, workers=1), {}),
+        "batched": (dict(batched=True, workers=1), {"BZ_TORCH_TRACE": "1"}),  # the batch prover's spans
+        "batched, workers=2": (dict(batched=True, workers=2), {}),
+        "batched, tail workers=2": (dict(batched=True, workers=1), {"BZ_BATCH_TAIL_WORKERS": "2"}),
+        "dp_devices=1": (dict(batched=False, workers=1, dp_devices=1), {}),
+    }
+    want, launches = None, {}
+    for tag, (opts, env) in runs.items():
+        name = f"prove_session (1 game, 4 shots, {tag})"
+        os.environ.update(env)
+        try:
+            session = timed(name, lambda: api.prove_session(
+                [GOLDEN_PLACEMENTS], shots_per_game=4, trapdoors=[0xBEEF], seed=5, device=dev, **opts))
+        finally:
+            for key in env:
+                os.environ.pop(key)
+        launches[tag] = timed.launches[name]
+        if (len(session.board_proofs), len(session.shot_proofs)) != (1, 4):
+            raise AssertionError(f"prove_session made the wrong number of proofs [{tag}]")
+        want = want or _session_bytes(session)
+        if _session_bytes(session) != want:
+            raise AssertionError(f"session proofs differ from the sequential session's [{tag}]")
+        if not timed(f"verify_session [{tag}]", lambda: api.verify_session(session, device=dev)):
+            raise AssertionError(f"verify_session rejected the session [{tag}]")
+    log(f"session bytes equal across {', '.join(runs)}")
+    return launches
 
 
-def run_main_path(dev) -> tuple[Phases, dict]:
+def run_main_path(dev) -> tuple[Phases, dict, dict]:
     timed = Phases()
     run_shot(dev, timed)
     run_board(dev, timed, "default")
     rows = run_board_rows(dev, timed)
-    run_session(dev, timed)
-    return timed, rows
+    sessions = run_sessions(dev, timed)
+    return timed, rows, sessions
+
+
+def _load_microbenchmark():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_exp_step_t", MICROBENCHMARK)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_microbenchmark(dev) -> tuple[dict, dict]:
+    """The K8 / K9 path: tools/torch_exp_step_t.py at the reference's
+    shapes, every K9 op. The tool holds each kernel bit for bit against its
+    plain chain and times both. -> rows for K8 and K9."""
+    from battlezips_halo2_tpu_torch.fields.limb import CHAIN_OPS
+
+    micro = _load_microbenchmark()
+    cfg = micro.settings()
+    chain = micro.run_chain(dev, cfg["n"], cfg["steps"])
+    kmicro = micro.run_kmicro(dev, cfg["n"], cfg["reps"], list(CHAIN_OPS))
+    n, steps, reps = chain["n"], chain["steps"], kmicro["reps"]
+    bms, by = bound_ms(n * (96 + 96 + 64) + steps * n, chain["additions"] * 11 * MONT_MUL_RESULTS)
+    k8 = {
+        "max_abs_err": chain["max_abs_err"], "ms": chain["one_launch"]["ms"], "plain_ms": chain["plain_ms"],
+        "bound_ms": bms, "bound_by": by, "ms_launch_per_step": chain["launch_per_step"]["ms"],
+        "shape": f"{n} lanes x {steps} steps, Vesta, {chain['additions']} additions; one launch",
+    }
+    op_results = {"mul": MONT_MUL_RESULTS, "redc": MONT_MUL_RESULTS - 128, **CHAIN_OP_RESULTS}
+    per_op = {}
+    for op, r in kmicro["ops"].items():
+        obms, oby = bound_ms(n * 3 * 32, n * reps * op_results[op])
+        per_op[op] = {"ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": obms, "bound_by": oby,
+                      "max_abs_err": r["max_abs_err"]}
+    mul = per_op["mul"]
+    k9 = {
+        "max_abs_err": max(r["max_abs_err"] for r in per_op.values()), "ms": mul["ms"], "plain_ms": mul["plain_ms"],
+        "bound_ms": mul["bound_ms"], "bound_by": mul["bound_by"], "per_op": per_op,
+        "shape": f"mul x {reps} over {n} Fq elements (per_op: every op)",
+    }
+    return k8, k9
+
+
+def card_int_rate() -> tuple[float, int, float]:
+    """(32-bit integer results per second, SMs, max SM clock in Hz): 64 per
+    SM per clock times the SMs times nvidia-smi's clocks.max.sm."""
+    import torch
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    clock = float(out.stdout.strip().splitlines()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT_RESULTS_PER_SM_CLOCK * sms * clock, sms, clock
+
+
+def _sass_multiplies(sass: str, function: str) -> tuple[int, int]:
+    """(multiply instructions, 32-bit results) of one function's SASS:
+    IMAD.WIDE is a 64-bit product (two results), IMAD.HI and IMAD one;
+    IMAD.X (add with carry), IMAD.MOV, IMAD.SHL and IMAD.IADD multiply
+    nothing."""
+    import re
+
+    body = sass.split(f"Function : {function}", 1)[1].split("Function : ", 1)[0]
+    instrs = results = 0
+    for op in re.findall(r"\b(IMAD(?:\.[A-Z0-9]+)*)\b", body):
+        if op.startswith("IMAD.WIDE"):
+            instrs, results = instrs + 1, results + 2
+        elif op == "IMAD" or op.startswith("IMAD.HI"):
+            instrs, results = instrs + 1, results + 1
+    return instrs, results
+
+
+def sass_mont_mul(lib: Path) -> tuple[int, int]:
+    """Multiply instructions and results of one Montgomery product in the
+    built library: K1's multiply kernel minus its add kernel, which share
+    every instruction but the product's."""
+    from battlezips_halo2_tpu_torch.ops import cuda
+
+    cuobjdump = Path(cuda._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    mul = _sass_multiplies(sass, "_Z15field_op_kernelILi0EEv11FieldConstsPKjS2_Pjxx")
+    add = _sass_multiplies(sass, "_Z15field_op_kernelILi1EEv11FieldConstsPKjS2_Pjxx")
+    return mul[0] - add[0], mul[1] - add[1]
 
 
 def report_rows(rows: dict) -> None:
@@ -583,6 +728,13 @@ def main() -> int:
         elif "Used" in line and "registers" in line and entry:
             log(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}")
 
+    global OPS_PER_S, MONT_MUL_RESULTS
+    OPS_PER_S, sms, clock = card_int_rate()
+    instrs, MONT_MUL_RESULTS = sass_mont_mul(lib)
+    log(f"operations bound: {INT_RESULTS_PER_SM_CLOCK} results/SM/clock x {sms} SMs x {clock / 1e6:.0f} MHz = "
+        f"{OPS_PER_S:.4g}/s; Montgomery product in SASS: {instrs} multiply instructions "
+        f"(CIOS count {MAD_PER_MONT_MUL}), {MONT_MUL_RESULTS} results")
+
     rng = random.Random(2024)
     t = time.time()
     rows = {"K1": check_k1(dev, rng, 1 << 13, 1 << 14)}
@@ -593,13 +745,14 @@ def main() -> int:
     log(f"phase kernels vs plain: {time.time() - t:.3f} s")
     report_rows(rows)
 
+    # the proof path: K1-K7
     cuda.reset_launches()
-    timed, row_launches = run_main_path(dev)
+    timed, row_launches, session_launches = run_main_path(dev)
     launches = dict(cuda.launches)
-    log(f"main path launches: {launches}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    log(f"proof path launches: {launches}")
+    missing = [k for k in PROOF_PATH_KERNELS if launches[k] <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        raise AssertionError(f"kernels not launched on the proof path: {missing}")
 
     # K5 at the board's own extended-domain shape: every polynomial the
     # quotient extends, at the vk's extended domain
@@ -612,17 +765,32 @@ def main() -> int:
     rows["K5"] = check_k5(dev, rng, [(4, 11), (2, 13)], batch, vk.domain.extended_n.bit_length() - 1)
     report_rows({"K5": rows["K5"]})
 
+    # the microbenchmark path: K8 and K9
+    cuda.reset_launches()
+    t = time.time()
+    rows["K8"], rows["K9"] = run_microbenchmark(dev)
+    log(f"phase microbenchmark (tools/torch_exp_step_t.py): {time.time() - t:.3f} s")
+    for name in MICRO_PATH_KERNELS:
+        launches[name] = cuda.launches[name]
+    log(f"microbenchmark path launches: { {k: cuda.launches[k] for k in MICRO_PATH_KERNELS} }")
+    missing = [k for k in MICRO_PATH_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the microbenchmark path: {missing}")
+    report_rows({"K8": rows["K8"], "K9": rows["K9"]})
+
     kernels = []
     for name, (fn, src, replaces) in KERNELS.items():
         r = rows[name]
+        extra = {k: r[k] for k in ("ms_launch_per_step", "per_op") if k in r}
         kernels.append({
             "name": f"{name} {fn}", "route": "cuda", "source": f"battlezips_halo2_tpu_torch/{src}",
             "replaces": replaces, "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None, "shape": r["shape"],
+            "library_ms": None, "shape": r["shape"], **extra,
         })
-    print(json.dumps({"kernels": kernels, "phases_s": timed.seconds, "row_configuration_launches": row_launches}),
-          flush=True)
+    print(json.dumps({"kernels": kernels, "phases_s": timed.seconds, "row_configuration_launches": row_launches,
+                      "session_launches": session_launches, "ops_per_s": OPS_PER_S,
+                      "mont_mul_results": MONT_MUL_RESULTS}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()

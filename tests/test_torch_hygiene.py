@@ -1,6 +1,7 @@
 """The port stands alone and runs on the card unless told otherwise:
-no module of battlezips_halo2_tpu_torch, nor chip_smoke.py or
-tools/torch_profile_shot.py, imports JAX or the JAX package; entry points refuse the CPU unless ``device="cpu"``;
+no module of battlezips_halo2_tpu_torch, nor chip_smoke.py,
+tools/torch_profile_shot.py or tools/torch_exp_step_t.py, imports JAX or
+the JAX package; entry points refuse the CPU unless ``device="cpu"``;
 chip_smoke.py fails without a card and outside a checkout."""
 
 import ast
@@ -29,7 +30,8 @@ def _imports(path: Path) -> set[str]:
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_profile_shot.py"],
+    sorted(PORT.rglob("*.py"))
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_profile_shot.py", ROOT / "tools" / "torch_exp_step_t.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_imports(path):

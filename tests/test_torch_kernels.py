@@ -119,3 +119,89 @@ def test_row_msm(cuda, monkeypatch):
     scalars = [rng.randrange(VESTA.scalar.modulus) for _ in pts]
     monkeypatch.setenv("BZ_ROW_MSM", "1")
     assert M.msm(VESTA, pts, scalars, cuda) == VESTA.msm(pts, scalars)
+
+
+def _chain_inputs(cuda, lanes, steps, seed):
+    """Random heads over P reversed, plus lanes 0-7 a head then adds (the
+    incomplete law's P == P case, then the identity), lane 8 P the
+    identity and lane 9 acc0 the identity."""
+    rng = random.Random(seed)
+    pts = [VESTA.mul(VESTA.generator, rng.randrange(1, 1 << 62)) for _ in range(lanes)]
+    pts[8] = None
+    acc_pts = pts[::-1]
+    acc_pts[9] = None
+    heads = torch.tensor([[rng.random() < 0.1 for _ in range(lanes)] for _ in range(steps)])
+    heads[:, :8] = False
+    heads[0, :8] = True
+    spec = L.FQ_SPEC
+    acc0 = C.affine_to_jacobian(spec, acc_pts, cuda)
+    return acc0, C.affine_table(spec, pts, cuda), heads.to(cuda)
+
+
+@pytest.mark.parametrize("per", [None, 1, 5], ids=["one_launch", "launch_per_step", "five_per_launch"])
+def test_k8_step_chain(cuda, per):
+    acc0, pxy, heads = _chain_inputs(cuda, 300, 12, seed=8)
+    got = C.step_chain(L.FQ_SPEC, acc0, pxy, heads, steps_per_launch=per)
+    assert torch.equal(got, C.plain_step_chain(L.FQ_SPEC, acc0, pxy, heads))
+    two = C.step_chain(L.FQ_SPEC, acc0, pxy, heads[:2].contiguous(), steps_per_launch=per)
+    assert int(two[:8].abs().sum()) == 0  # head then add: the generic formula's (0, 0, 0)
+
+
+@pytest.mark.parametrize("op", list(L.CHAIN_OPS))
+def test_k9_op_chain(cuda, op):
+    rng = random.Random(9)
+    spec = L.FQ_SPEC
+    a, b = _field(rng, spec.modulus, 1000, cuda), _field(rng, spec.modulus, 1000, cuda)
+    for reps in (0, 1, 32):
+        assert torch.equal(L.op_chain(op, spec, a, b, reps), L.plain_op_chain(op, spec, a, b, reps))
+
+
+@pytest.fixture
+def second_card(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    return torch.device("cuda", 1)
+
+
+def test_kernels_launch_on_the_second_card_from_a_new_thread(second_card):
+    """A new thread's current device is cuda:0; a wrapper makes its
+    tensors' card current for the launch (ops/cuda.py::launch)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = random.Random(12)
+    spec = L.FP_SPEC
+    a, b = _field(rng, spec.modulus, 1000, second_card), _field(rng, spec.modulus, 1000, second_card)
+    plan = D.NttPlan(spec, 1 << 9, pow(FP.root_of_unity, 1 << 23, FP.modulus), second_card)
+    x = _field(rng, FP.modulus, 2 << 9, second_card).view(2, 1 << 9, 8)
+
+    def run():
+        before = torch.cuda.current_device()
+        got = L.field_op(L.OP_MUL, spec, a, b), D.ntt(plan, x)
+        torch.cuda.synchronize(second_card)
+        return before, torch.cuda.current_device(), got
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        before, after, (k1, k4) = pool.submit(run).result()
+    assert before == after == 0
+    assert k1.device == k4.device == second_card
+    assert torch.equal(k1, L.plain_field_op(L.OP_MUL, spec, a, b))
+    want = x.index_select(1, plan.rev_idx)
+    for s in range(plan.logn):
+        want = D.butterfly_stage_plain(spec, want, plan.stage_twiddles[s], s)
+    assert torch.equal(k4, want)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["sequential", "batched"])
+def test_session_on_two_cards_gives_the_one_card_bytes(second_card, batched):
+    """prove_session(dp_devices=2) proves jobs (or shot sub-batches) on
+    cuda:0 and cuda:1 with the bytes of the session on one card."""
+    from battlezips_halo2_tpu_torch import api
+
+    placements = [(3, 3, True), (5, 4, False), (0, 1, False), (0, 5, True), (6, 1, False)]
+    kw = dict(shots_per_game=4, trapdoors=[0xBEEF], seed=5, batched=batched)
+    one = api.prove_session([placements], device="cuda:0", **kw)
+    two = api.prove_session([placements], dp_devices=2, **kw)
+    proofs = [[p.proof for p in s.board_proofs + s.shot_proofs] for s in (one, two)]
+    assert proofs[0] == proofs[1]
+    assert torch.cuda.memory_allocated(second_card) > 0
+    assert api.verify_session(two, device=second_card)
