@@ -2,8 +2,13 @@
 // out[i] = a[i] (*|+|-) b[i % nb], the product in Montgomery form.
 //
 // Replaces battlezips_halo2_tpu/ops/pallas_kernels.py:263 mont_mul_rows
-// (_mont_mul_call). The same kernel template also serves field add and sub,
-// which the quotient VM and the coset scaling interleave with products.
+// (_mont_mul_call). The same kernel template also serves field add and sub.
+// The proof launches it for the Montgomery conversions and the coset and
+// inverse-NTT scales (~23 launches a proof); the quotient program, which
+// made one launch of it per instruction (~2200 a board proof), runs in one
+// launch of csrc/quotient_vm.cu. This kernel still runs that program
+// stepwise (ops/gate_eval.py::quotient_vm_plain with op=field_op), the old
+// route chip_smoke.py times beside it.
 // Bound on the H100: bytes. A product is ~200 integer instructions per
 // 96 bytes moved, far under the card's integer rate, so the kernel streams
 // rows with 16-byte accesses and keeps no state between threads.

@@ -1,12 +1,16 @@
-// K3: complete Jacobian point addition over lanes, out[i] = p[i] + q[i],
-// points stored as (lanes, 3, 8) rows of X, Y, Z in Montgomery form.
+// K3's lane-wise form: complete Jacobian point addition over lanes,
+// out[i] = p[i] + q[i], points stored as (lanes, 3, 8) rows of X, Y, Z in
+// Montgomery form.
 //
 // Replaces battlezips_halo2_tpu/ops/pallas_kernels.py:414 point_add_T
-// (_point_add_T_call). Identity, P == Q and P == -Q are handled by the
-// reference's case order; the doubling runs only in the lanes that need it.
-// Bound on the H100: operations at the MSM's widths (~16 products of
-// ~200 integer instructions per 288 bytes moved); at the narrow widths of
-// the bucket aggregation it is bound by launch latency instead.
+// (_point_add_T_call) one for one. Identity, P == Q and P == -Q are
+// handled by the reference's case order; the doubling runs only in the
+// lanes that need it. The MSM no longer runs it: its window aggregation is
+// one launch of csrc/window_sums.cu, where one launch of this kernel per
+// addition (82 at 256 buckets) was bound by launch latency and by one
+// addition's dependent chain (~18 us a launch on the H100). It stays as
+// the coordinate-exact cross-check of K6 and as the old route that
+// chip_smoke.py times beside the window kernel.
 #include "field.cuh"
 
 __global__ void point_add_kernel(FieldConsts F, const uint32_t* p, const uint32_t* q, uint32_t* out,

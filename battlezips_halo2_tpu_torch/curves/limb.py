@@ -6,8 +6,9 @@ the reference's curves/limb.py). Affine point tables for the MSM are
 ``(N, 2, 8)``: (x, y) in Montgomery form, the all-zero row being the
 identity ((0, 0) is never on y^2 = x^3 + 5).
 
-Kernel K3 (``csrc/point_add.cu``) is the complete addition
-:func:`point_add`. Kernel K6 (``csrc/point_add_planes.cu``),
+Kernel K3's lane-wise form (``csrc/point_add.cu``) is the complete
+addition :func:`point_add` (the MSM's window aggregation, K3 proper, is
+``ops/msm.py::window_sums``). Kernel K6 (``csrc/point_add_planes.cu``),
 :func:`point_add_planes`, is the same addition on points held as coordinate
 planes, ``(3, ..., 8)`` with X, Y and Z each contiguous, as the reference's
 ``JacobianPoint`` rows are. Kernel K8 (``csrc/step_chain.cu``),
@@ -120,8 +121,9 @@ def point_double_plain(spec: FieldSpec, p: torch.Tensor) -> torch.Tensor:
     return _jac(x3, y3, add(yz, yz))
 
 
-def point_add_plain(spec: FieldSpec, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Complete P + Q ('add-2007-bl'), cases selected as in the reference."""
+def point_add_plain(spec: FieldSpec, p: torch.Tensor, q: torch.Tensor, out=None) -> torch.Tensor:
+    """Complete P + Q ('add-2007-bl'), cases selected as in the reference;
+    written into ``out`` if one is given."""
     mul, add, sub = _ops(spec)
     x1, y1, z1 = p.unbind(-2)
     x2, y2, z2 = q.unbind(-2)
@@ -139,14 +141,15 @@ def point_add_plain(spec: FieldSpec, p: torch.Tensor, q: torch.Tensor) -> torch.
     x3 = sub(sub(mul(r, r), hhh), add(v, v))
     y3 = sub(mul(r, sub(v, x3)), mul(s1, hhh))
     z3 = mul(mul(z1, z2), h)
-    out = _jac(x3, y3, z3)
+    pq = _jac(x3, y3, z3)
     h0, r0 = L.is_zero(h), L.is_zero(r)
     p_inf, q_inf = L.is_zero(z1), L.is_zero(z2)
     if bool((h0 & r0 & ~p_inf & ~q_inf).any()):  # doubling only where it is selected
-        out = _select(h0 & r0, point_double_plain(spec, p), out)
-    out = _select(h0 & ~r0, infinity(spec, h0.shape, p.device), out)
-    out = _select(q_inf, p, out)
-    return _select(p_inf, q, out)
+        pq = _select(h0 & r0, point_double_plain(spec, p), pq)
+    pq = _select(h0 & ~r0, infinity(spec, h0.shape, p.device), pq)
+    pq = _select(q_inf, p, pq)
+    pq = _select(p_inf, q, pq)
+    return pq if out is None else out.copy_(pq)
 
 
 def point_add_mixed_plain(spec: FieldSpec, p: torch.Tensor, qxy: torch.Tensor, complete: bool):
@@ -200,8 +203,7 @@ def point_add(spec: FieldSpec, p: torch.Tensor, q: torch.Tensor, out=None) -> to
     if out is None:
         out = torch.empty_like(p)
     if not p.is_cuda:
-        out.copy_(point_add_plain(spec, p, q))
-        return out
+        return point_add_plain(spec, p, q, out=out)
     from ..ops import cuda
 
     for t in (p, q, out):

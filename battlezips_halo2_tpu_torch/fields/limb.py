@@ -6,12 +6,14 @@ read them as ``uint32``). Elements are always canonical (< p). Products are
 Montgomery products with R = 2^256, so field values in Montgomery form
 multiply with :func:`mont_mul`; :func:`to_mont` / :func:`from_mont` convert.
 
-Kernel K1 (``csrc/field_ops.cu``) computes ``out[i] = a[i] op b[i % nb]``
-for op in (Montgomery product, add, sub). :func:`field_op` launches it for a
-CUDA tensor and runs the plain PyTorch version (:func:`plain_field_op`) for
-a CPU tensor. The plain version splits each limb into 16-bit halves held in
-int64, so every partial product and column sum stays exact; it computes
-the same canonical values as the kernel, bit for bit.
+Kernel K1's elementwise form (``csrc/field_ops.cu``) computes
+``out[i] = a[i] op b[i % nb]`` for op in (Montgomery product, add, sub);
+the quotient program runs on K1's VM kernel (``ops/gate_eval.py``).
+:func:`field_op` launches it for a CUDA tensor and runs the plain PyTorch
+version (:func:`plain_field_op`) for a CPU tensor. The plain version
+splits each limb into 16-bit halves held in int64, so every partial
+product and column sum stays exact; it computes the same canonical values
+as the kernel, bit for bit.
 
 Kernel K9 (``csrc/op_chain.cu``), :func:`op_chain`, applies one op ``reps``
 times per element, ``x = op(x, b)``: a latency probe of the field ops,
@@ -224,11 +226,12 @@ def _rows(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
     return n, nb
 
 
-def plain_field_op(op: int, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of K1: ``a[i] op b[i % nb]``, shape of a."""
+def plain_field_op(op: int, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, out=None) -> torch.Tensor:
+    """The plain PyTorch version of K1: ``a[i] op b[i % nb]``, shape of a,
+    written into ``out`` if one is given."""
     n, nb = _rows(a, b)
-    r = _PLAIN[op](spec, a.reshape(n // nb, nb, NLIMBS), b.reshape(nb, NLIMBS))
-    return r.reshape(a.shape)
+    r = _PLAIN[op](spec, a.reshape(n // nb, nb, NLIMBS), b.reshape(nb, NLIMBS)).reshape(a.shape)
+    return r if out is None else out.copy_(r)
 
 
 def field_op(op: int, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, out=None) -> torch.Tensor:
@@ -239,8 +242,7 @@ def field_op(op: int, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, out=Non
     if out is None:
         out = torch.empty_like(a)
     if not a.is_cuda:
-        out.copy_(plain_field_op(op, spec, a, b))
-        return out
+        return plain_field_op(op, spec, a, b, out=out)
     from ..ops import cuda
 
     for t in (a, b, out):

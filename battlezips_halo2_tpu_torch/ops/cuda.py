@@ -64,6 +64,12 @@ _SIGNATURES = {
     "bz_step_chain": (_P, _P, _P, _P, _I64, _INT, _INT, _P),
     # op, consts, a, b, out, n, reps, stream
     "bz_op_chain": (_INT, _P, _P, _P, _P, _I64, _INT, _P),
+    # consts, buckets, out, rows, nbuck, log2 threads per row, segment, stream
+    "bz_window_sums": (_P, _P, _P, _I64, _INT, _INT, _INT, _P),
+    # resident threads of the window kernel on the current card (out)
+    "bz_window_resident": (ctypes.POINTER(_I64),),
+    # consts, prog, n_instr, desc, n_pins, 4 sources, t_inv, out, log2 ext, lanes, n_temps, stream
+    "bz_quotient_vm": (_P, _P, _INT, _P, _INT, _P, _P, _P, _P, _P, _P, _INT, _I64, _INT, _P),
 }
 
 

@@ -3,14 +3,18 @@
 The prover's heaviest phase evaluates every constraint polynomial over the
 extended coset and folds the terms with y. The constraint math is emitted
 as bytecode (``_VMEmitter``): the gate / permutation / lookup formulas are
-walked once into a static stream of field ops (mul / add / sub) over a
-register file of (ext, 8)-limb Montgomery vectors. The executor is a Python
-loop over that stream; each instruction is one launch of kernel K1
-(fields/limb.py::field_op) writing its destination register in place.
+walked once into a static stream of field ops (mul / add / sub) over
+registers of (ext, 8)-limb Montgomery vectors. On the card the whole stream
+runs in one launch of K1's VM kernel (``csrc/quotient_vm.cu``,
+:func:`quotient_vm`), one lane per thread, ending in the product with
+1/Z_H. On the CPU its plain version (:func:`quotient_vm_plain`) gathers
+the pins into a register file and runs one field op per instruction.
 
 * inputs (extended column polys with their rotations, challenges,
-  constants) are bound to pinned registers per call; temporaries are
-  register-allocated with a free list at emission time;
+  constants) are pinned registers: a pin descriptor (:func:`pin_descriptors`)
+  says where each lives, so the kernel reads them where they are, and the
+  plain version gathers them into its register file per call;
+  temporaries are register-allocated with a free list at emission time;
 * l_0 / l_last / l_active, the coset coordinates and 1/Z_H are constants
   of the proving key;
 * the division by Z_H, the extended iNTT and the coset unscale run in the
@@ -39,6 +43,13 @@ from ..poly.transforms import coeff_to_extended_limbs, extended_to_coeff_limbs
 P = FP.modulus
 
 OP_MUL, OP_ADD, OP_SUB = 0, 1, 2
+
+# the sources a pin descriptor points into (see pin_descriptors)
+SRC_SHARED, SRC_PER, SRC_NAMED, SRC_SCALARS = range(4)
+NAMED_SOURCES = ("l0", "llast", "lactive", "x")
+CHALLENGES = ("theta", "beta", "gamma", "y")
+VM_BLOCK = 128  # threads (lanes) of a block of csrc/quotient_vm.cu
+VM_SHARED_BYTES = 232448  # shared memory a block of an H100 can use
 
 
 class _Handle:
@@ -312,6 +323,99 @@ def emit_vm(vk, schedule: ProofSchedule):
     return em.finalize()
 
 
+def pin_descriptors(pin_keys: list, shared_keys: list, per_keys: list, ext: int, rot_scale: int):
+    """Where each pinned register lives -> ((n_pins, 5) int64 descriptors,
+    the scalar table's leading rows as Montgomery ints).
+
+    Descriptor (source, row0, stride_b, stride_lane, rot): operand (pin p,
+    lane (b, i)) is row row0 + b stride_b + ((i + rot) mod ext) stride_lane
+    of its source, viewed as (rows, 8) limbs. The sources are
+    SRC_SHARED (K_s, ext, 8) the pk-constant extensions (fixed, sigma),
+    SRC_PER (B, K_p, ext, 8) each proof's extensions, SRC_NAMED
+    (4, ext, 8) l0 / llast / lactive / x, and SRC_SCALARS: the constants
+    (the returned rows; "one" among them) followed by each proof's four
+    challenges. Rotation r reads row i + r rot_scale, taken mod ext, as
+    torch.roll by -r rot_scale does."""
+    shared = {k: i for i, k in enumerate(shared_keys)}
+    per = {k: i for i, k in enumerate(per_keys)}
+    r = FP_SPEC.r_mod_p
+    scalar_keys = [key for key in pin_keys if key[0] == "const" or key == ("named", "one")]
+    scalars = [key[1] * r % P if key[0] == "const" else r for key in scalar_keys]
+    desc, next_scalar = [], 0
+    for key in pin_keys:
+        if key[0] == "inp":
+            _, kind, index, rot = key
+            if (kind, index) in shared:
+                desc.append((SRC_SHARED, shared[(kind, index)] * ext, 0, 1, rot * rot_scale % ext))
+            else:
+                desc.append((SRC_PER, per[(kind, index)] * ext, len(per_keys) * ext, 1, rot * rot_scale % ext))
+        elif key[0] == "chal":
+            desc.append((SRC_SCALARS, len(scalars) + CHALLENGES.index(key[1]), len(CHALLENGES), 0, 0))
+        elif key[0] == "named" and key[1] != "one":
+            desc.append((SRC_NAMED, NAMED_SOURCES.index(key[1]) * ext, 0, 1, 0))
+        else:
+            desc.append((SRC_SCALARS, next_scalar, 0, 0, 0))
+            next_scalar += 1
+    return np.array(desc, dtype=np.int64).reshape(-1, 5), scalars
+
+
+def quotient_vm_plain(spec, prog, desc, sources, t_inv, nb: int, n_regs: int, op=None) -> torch.Tensor:
+    """The plain PyTorch version of K1's VM kernel, on the kernel's inputs:
+    the pins gathered from their descriptors into a register file
+    (n_regs, nb, ext, 8), the program run one ``op`` call per instruction
+    (default fields/limb.py::plain_field_op; ``L.field_op`` on CUDA tensors
+    is the stepwise route, one elementwise K1 launch per instruction), then
+    h = agg * t_inv."""
+    op = op or L.plain_field_op
+    ext = t_inv.shape[0]
+    dev = t_inv.device
+    regs = torch.zeros((n_regs, nb, ext, L.NLIMBS), dtype=torch.int32, device=dev)
+    b = torch.arange(nb, device=dev).view(-1, 1)
+    i = torch.arange(ext, device=dev).view(1, -1)
+    for reg, (src, row0, stride_b, stride_lane, rot) in enumerate(desc.tolist(), start=1):
+        rows = row0 + b * stride_b + (i + rot) % ext * stride_lane
+        regs[reg] = sources[src].reshape(-1, L.NLIMBS)[rows]
+    for code, a, c, d in prog.tolist():
+        op(code, spec, regs[a], regs[c], out=regs[d])
+    return op(OP_MUL, spec, regs[0], t_inv)
+
+
+def quotient_vm(spec, prog, desc, sources, t_inv, nb: int, n_regs: int) -> torch.Tensor:
+    """K1's VM: run ``prog`` ((I, 4) int32: op, a, b, dst) over nb x ext
+    lanes, the pins read through ``desc`` ((n_pins, 5) int64, see
+    :func:`pin_descriptors`) from the four ``sources``, agg and the
+    temporaries kept on the SM -> h (nb, ext, 8) = agg * t_inv (t_inv
+    (ext, 8), ext a power of two). Destinations are agg or temporaries,
+    never pins. A CUDA tensor launches the kernel once; a CPU tensor runs
+    :func:`quotient_vm_plain`."""
+    ext, n_pins = t_inv.shape[0], desc.shape[0]
+    n_temps = n_regs - 1 - n_pins
+    if ext & (ext - 1) or prog.shape[-1] != 4 or desc.shape[-1] != 5 or len(sources) != 4 or n_temps < 0:
+        raise ValueError(f"bad VM inputs: ext {ext}, prog {tuple(prog.shape)}, desc {tuple(desc.shape)}")
+    if not t_inv.is_cuda:
+        return quotient_vm_plain(spec, prog, desc, sources, t_inv, nb, n_regs)
+    from . import cuda
+
+    smem = (n_temps + 1) * 4 * L.NLIMBS * VM_BLOCK
+    if smem > VM_SHARED_BYTES:
+        raise ValueError(
+            f"the quotient VM keeps {n_temps} temporaries and agg on the SM: {smem} bytes of shared memory a block, "
+            f"more than the {VM_SHARED_BYTES} a block can hold"
+        )
+    cuda.require(prog, torch.int32, "K1 VM program")
+    cuda.require(desc, torch.int64, "K1 VM pin descriptors")
+    for src in (*sources, t_inv):
+        cuda.require(src, torch.int32, "K1 VM source")
+    out = torch.empty(nb, ext, L.NLIMBS, dtype=torch.int32, device=t_inv.device)
+    if nb:
+        cuda.launch(
+            "K1", "bz_quotient_vm", t_inv, spec.kernel_consts, cuda.ptr(prog), prog.shape[0], cuda.ptr(desc), n_pins,
+            *(cuda.ptr(src) for src in sources), cuda.ptr(t_inv), cuda.ptr(out), ext.bit_length() - 1, nb * ext,
+            n_temps,
+        )
+    return out
+
+
 class BatchQuotientEvaluator:
     """Built once per proving key: the quotients of B proofs under that key,
     one VM program for the whole batch; __call__(list of polys by key, list
@@ -321,10 +425,11 @@ class BatchQuotientEvaluator:
       extended to the coset once, at the first call, and kept;
     * each proof's polynomials are uploaded as length-n coefficients and
       zero-padded to the extended size on the device;
-    * the register file is (n_regs, B, ext, 8), so a register is one
-      contiguous (B ext, 8) block and every VM instruction is one launch of
-      kernel K1 for the whole batch; the challenge registers hold each
-      proof's challenges along the B axis;
+    * on the card the program runs in one launch of K1's VM kernel for the
+      whole batch (:func:`quotient_vm`), reading every pin where it lives
+      through the key's pin descriptors; on the CPU its plain version runs
+      it one field op per instruction over a (n_regs, B, ext, 8) register
+      file;
     * the program is the reference's instruction stream, so each proof's h
       coefficients are the reference's, bit for bit.
     """
@@ -337,8 +442,6 @@ class BatchQuotientEvaluator:
         self.keys = quotient_poly_keys(cs, schedule.num_perm_chunks)
         self.shared_keys = [k for k in self.keys if k[0] in ("fixed", "sigma")]
         self.per_keys = [k for k in self.keys if k[0] not in ("fixed", "sigma")]
-        self._shared_index = {k: i for i, k in enumerate(self.shared_keys)}
-        self._per_index = {k: i for i, k in enumerate(self.per_keys)}
         self._shared_ext = None
         ext = domain.extended_n
         self.rot_scale = ext // domain.n
@@ -349,12 +452,17 @@ class BatchQuotientEvaluator:
         def mont_const(vals):
             return ints_to_limbs([v * r % P for v in vals], self.device)
 
-        self.named = {name: mont_const(consts[name]) for name in ("l0", "llast", "lactive", "x")}
-        self.named["one"] = FP_SPEC.const("one_mont", self.device).expand(ext, L.NLIMBS)
         self.t_inv = mont_const(consts["t_inv"])
         prog, self.pin_keys, self.n_regs = emit_vm(vk, schedule)
-        self.prog = prog.tolist()
-        self.vm_size = (len(self.prog), self.n_regs)
+        self.vm_size = (prog.shape[0], self.n_regs)
+        n_pins = len(self.pin_keys)
+        if any(0 < d <= n_pins for d in prog[:, 3].tolist()):
+            raise ValueError("the VM program writes a pinned register")
+        desc, scalars = pin_descriptors(self.pin_keys, self.shared_keys, self.per_keys, ext, self.rot_scale)
+        self.prog_t = torch.from_numpy(prog).to(self.device)
+        self.desc = torch.from_numpy(desc).to(self.device)
+        self.named_stack = torch.stack([mont_const(consts[name]) for name in NAMED_SOURCES])
+        self.scalar_rows = ints_to_limbs(scalars, self.device)
 
     def _extended(self, polys: list) -> torch.Tensor:
         """Coefficient lists (each <= n long) -> (K, ext, 8) Montgomery
@@ -368,43 +476,38 @@ class BatchQuotientEvaluator:
         coeffs = ints_to_limbs(flat, self.device).reshape(len(polys), n, L.NLIMBS)
         return L.to_mont(FP_SPEC, coeff_to_extended_limbs(self.domain, coeffs))
 
+    def inputs(self, coeff_polys_by_key_list: list, challenges_list: list) -> tuple[torch.Tensor, torch.Tensor]:
+        """One {key: coefficient int list} and one (theta, beta, gamma, y)
+        per proof -> (per (B, K_p, ext, 8) extensions, challenges (B, 4, 8)),
+        Montgomery; the pk-constant extensions are made at the first call."""
+        nb = len(coeff_polys_by_key_list)
+        if nb == 0 or nb != len(challenges_list):
+            raise ValueError(f"need one challenge tuple per proof: {nb} proofs, {len(challenges_list)} tuples")
+        if self._shared_ext is None:
+            self._shared_ext = self._extended([coeff_polys_by_key_list[0][k] for k in self.shared_keys])
+        per = self._extended([polys[k] for polys in coeff_polys_by_key_list for k in self.per_keys])
+        per = per.view(nb, len(self.per_keys), self.domain.extended_n, L.NLIMBS)
+        flat_ch = [c % P for chs in challenges_list for c in chs]
+        ch = L.to_mont(FP_SPEC, ints_to_limbs(flat_ch, self.device)).view(nb, len(CHALLENGES), L.NLIMBS)
+        return per, ch
+
+    def sources(self, per: torch.Tensor, ch: torch.Tensor) -> tuple:
+        """The four sources of the pin descriptors, in SRC_* order."""
+        return self._shared_ext, per, self.named_stack, torch.cat([self.scalar_rows, ch.reshape(-1, L.NLIMBS)])
+
+    def h_ext(self, per: torch.Tensor, ch: torch.Tensor) -> torch.Tensor:
+        """-> (B, ext, 8) Montgomery h = (folded constraints) / Z_H on the
+        extended coset: :func:`quotient_vm`, K1's VM kernel on the card and
+        its plain version on the CPU."""
+        srcs = self.sources(per, ch)
+        return quotient_vm(FP_SPEC, self.prog_t, self.desc, srcs, self.t_inv, per.shape[0], self.n_regs)
+
     def __call__(self, coeff_polys_by_key_list: list, challenges_list: list) -> list[list[int]]:
         """coeff_polys_by_key_list: one {key: coefficient int list} per
         proof; challenges_list: one (theta, beta, gamma, y) per proof.
         Returns each proof's h coefficients."""
-        nb = len(coeff_polys_by_key_list)
-        if nb == 0 or nb != len(challenges_list):
-            raise ValueError(f"need one challenge tuple per proof: {nb} proofs, {len(challenges_list)} tuples")
-        ext = self.domain.extended_n
-        dev = self.device
-        if self._shared_ext is None:
-            self._shared_ext = self._extended([coeff_polys_by_key_list[0][k] for k in self.shared_keys])
-        per = self._extended([polys[k] for polys in coeff_polys_by_key_list for k in self.per_keys])
-        per = per.view(nb, len(self.per_keys), ext, L.NLIMBS)
-        flat_ch = [c % P for chs in challenges_list for c in chs]
-        ch = L.to_mont(FP_SPEC, ints_to_limbs(flat_ch, dev)).view(nb, 4, 1, L.NLIMBS)
-        chal = dict(zip(("theta", "beta", "gamma", "y"), ch.unbind(1)))
-
-        def evals_of(key):
-            if key in self._shared_index:
-                return self._shared_ext[self._shared_index[key]]
-            return per[:, self._per_index[key]]
-
-        # register file: [0] = agg, [1 .. pins] = pinned inputs, then temps
-        regs = torch.zeros((self.n_regs, nb, ext, L.NLIMBS), dtype=torch.int32, device=dev)
-        for i, key in enumerate(self.pin_keys, start=1):
-            if key[0] == "inp":
-                _, kind, index, rot = key
-                regs[i] = torch.roll(evals_of((kind, index)), -rot * self.rot_scale, -2)
-            elif key[0] == "const":
-                regs[i] = ints_to_limbs([key[1] * FP_SPEC.r_mod_p % P], dev)
-            elif key[0] == "chal":
-                regs[i] = chal[key[1]]
-            else:
-                regs[i] = self.named[key[1]]
-        for op, a, b, d in self.prog:
-            L.field_op(op, FP_SPEC, regs[a], regs[b], out=regs[d])
-        h_ext = L.mont_mul(FP_SPEC, regs[0], self.t_inv)
+        nb, ext = len(coeff_polys_by_key_list), self.domain.extended_n
+        h_ext = self.h_ext(*self.inputs(coeff_polys_by_key_list, challenges_list))
         ints = limbs_to_ints(extended_to_coeff_limbs(self.domain, L.from_mont(FP_SPEC, h_ext)))
         return [ints[i * ext : (i + 1) * ext] for i in range(nb)]
 

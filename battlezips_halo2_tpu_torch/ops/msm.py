@@ -11,8 +11,12 @@ For a batch of B scalar vectors over one table of N affine points:
    thread, with the incomplete mixed addition and its P == Q flag. If any
    live bucket raised the flag the batch is redone with the complete law
    (K7, the kernel's complete variant), which small MSMs run directly;
-4. per window, T_w = sum_b b S_b by the reference's two-level running-sum
-   decomposition over kernel K3 (complete Jacobian addition);
+4. per window, T_w = sum_b b S_b in one launch of kernel K3
+   (``csrc/window_sums.cu``) for every window of the batch: each row's
+   buckets are split over the threads of a block, which combine their
+   segment sums through shared memory (:func:`window_sums`; its plain
+   version is the reference's two-level running-sum decomposition over
+   the complete Jacobian addition, one addition per step);
 5. the host converts the B x W window sums to affine and folds them,
    sum_w 2^(c w) T_w (host_window_fold).
 
@@ -21,12 +25,14 @@ repair: a thread walks a whole bucket, so no run is ever split.
 
 Under ``BZ_ROW_MSM`` the MSM takes the route of the reference's row-layout
 kernels: every bucket run goes through the complete law (K7), with no
-collision flag and no redo, and step 4 runs on kernel K6 with the points
-held as coordinate planes (3, ..., 8) from the bucket sums to the window
-sums.
+collision flag and no redo, and step 4 runs the two-level running sums
+one addition per launch of kernel K6, with the points held as coordinate
+planes (3, ..., 8) from the bucket sums to the window sums.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -146,14 +152,18 @@ def bucket_sums(spec: FieldSpec, table, src, starts, complete: bool):
     return out, flags
 
 
-def _aggregate_windows(spec: FieldSpec, buckets: torch.Tensor, nbuck: int, planar: bool = False) -> torch.Tensor:
+def _aggregate_windows(
+    spec: FieldSpec, buckets: torch.Tensor, nbuck: int, planar: bool = False, add=None
+) -> torch.Tensor:
     """buckets (R, nbuck, 3, 8), bucket 0 unused -> (R, 3, 8) with
     T = sum_{b=1..m} b S_b, m = nbuck - 1, as two levels of running sums:
     b = k g + i (i in [1, g], k < G): T = sum_k (k g U_k + A_k) with
     U_k = sum_i S_{kg+i}, A_k = sum_i i S_{kg+i}. Level 1 runs g steps at
     width R G, level 2 G steps at width R: ~2 (g + G) additions deep.
-    The additions run on K3, or with ``planar`` on K6 over coordinate
-    planes (3, R, ..., 8), converted once here and once at the end."""
+    The additions are lane-wise calls of ``add`` (default
+    ``curves/limb.py::point_add``), or with ``planar`` of
+    ``point_add_planes`` (K6) over coordinate planes (3, R, ..., 8),
+    converted once here and once at the end."""
     r_count, dev = buckets.shape[0], buckets.device
     m = nbuck - 1
     gbits = max(1, ((m - 1).bit_length() + 1) // 2)
@@ -163,7 +173,7 @@ def _aggregate_windows(spec: FieldSpec, buckets: torch.Tensor, nbuck: int, plana
         add, inf, axis = C.point_add_planes, C.infinity_planes, 2
         buckets = buckets.permute(2, 0, 1, 3).contiguous()
     else:
-        add, inf, axis = C.point_add, C.infinity, 1
+        add, inf, axis = add or C.point_add, C.infinity, 1
 
     def column(t: torch.Tensor, k: int) -> torch.Tensor:
         return t.select(axis, k).contiguous()
@@ -190,6 +200,73 @@ def _aggregate_windows(spec: FieldSpec, buckets: torch.Tensor, nbuck: int, plana
             add(spec, acc2, acc2.clone(), out=acc2)
         total = add(spec, acc2, total)
     return total.movedim(0, -2).contiguous() if planar else total
+
+
+def window_sums_plain(spec: FieldSpec, buckets: torch.Tensor, nbuck: int) -> torch.Tensor:
+    """The plain PyTorch version of K3's window kernel, on any device: the
+    reference's two-level running sums (:func:`_aggregate_windows`) over
+    ``curves/limb.py::point_add_plain``."""
+    return _aggregate_windows(spec, buckets, nbuck, add=C.point_add_plain)
+
+
+WINDOW_BLOCK = 128  # threads of a block of csrc/window_sums.cu
+_window_resident: dict = {}
+
+
+def window_resident(device: torch.device) -> int:
+    """Threads of K3's window kernel that the card holds at once: its SMs x
+    the blocks an SM keeps resident, from the CUDA occupancy calculator on
+    the built kernel (so a change of its registers changes the split);
+    asked once per card."""
+    from . import cuda
+
+    if device not in _window_resident:
+        n = ctypes.c_longlong()
+        with torch.cuda.device(device):
+            cuda.check(cuda.library().bz_window_resident(ctypes.byref(n)), "K3 bz_window_resident")
+        if n.value < WINDOW_BLOCK:
+            raise RuntimeError(f"K3's window kernel fits no block on {device}: {n.value} resident threads")
+        _window_resident[device] = n.value
+    return _window_resident[device]
+
+
+def window_layout(rows: int, m: int, resident: int) -> tuple[int, int]:
+    """(threads per row, buckets per thread) of K3 for ``rows`` rows of m
+    buckets: both powers of two, threads x segment >= m. A row takes up to
+    a block, which keeps the serial depth lowest; when the rows would not
+    all be resident at once (``resident`` threads, :func:`window_resident`),
+    each takes fewer threads (down to 32): a second wave of blocks would
+    cost more than the longer segments."""
+    total = 1 << (m - 1).bit_length()
+    threads = min(total, WINDOW_BLOCK)
+    while threads > 32 and rows * threads > resident:
+        threads //= 2
+    return threads, total // threads
+
+
+def window_sums(spec: FieldSpec, buckets: torch.Tensor, nbuck: int) -> torch.Tensor:
+    """K3: buckets (R, nbuck, 3, 8) Jacobian Montgomery points, bucket 0
+    unused -> (R, 3, 8) with T = sum_{b=1..m} b S_b, m = nbuck - 1, for
+    every row in one launch. A CUDA tensor launches the kernel; a CPU tensor
+    runs the plain version, :func:`window_sums_plain`. The two add in
+    different orders: their Jacobian coordinates differ, their points are
+    equal."""
+    if buckets.dim() != 4 or buckets.shape[1:] != (nbuck, 3, L.NLIMBS) or nbuck < 2:
+        raise ValueError(f"buckets must be (rows, {nbuck}, 3, 8) with nbuck >= 2: {tuple(buckets.shape)}")
+    if not buckets.is_cuda:
+        return window_sums_plain(spec, buckets, nbuck)
+    from . import cuda
+
+    cuda.require(buckets, torch.int32, "K3 buckets")
+    rows = buckets.shape[0]
+    out = torch.empty(rows, 3, L.NLIMBS, dtype=torch.int32, device=buckets.device)
+    if rows:
+        threads, seg = window_layout(rows, nbuck - 1, window_resident(buckets.device))
+        cuda.launch(
+            "K3", "bz_window_sums", buckets, spec.kernel_consts, cuda.ptr(buckets), cuda.ptr(out), rows, nbuck,
+            threads.bit_length() - 1, seg,
+        )
+    return out
 
 
 def bucket_runs(spec: FieldSpec, table, scalars, c: int, signed: bool):
@@ -235,7 +312,8 @@ def msm_wsums(spec: FieldSpec, table, scalars, c: int, signed: bool, complete: b
     table, src, starts, nbuck = bucket_runs(spec, table, scalars, c, signed)
     sums, flags = bucket_sums(spec, table, src, starts, complete)
     collision = not complete and bool(flags.any())
-    wsums = _aggregate_windows(spec, sums.view(-1, nbuck, 3, L.NLIMBS), nbuck, planar=row)
+    buckets = sums.view(-1, nbuck, 3, L.NLIMBS)
+    wsums = _aggregate_windows(spec, buckets, nbuck, planar=True) if row else window_sums(spec, buckets, nbuck)
     return wsums.view(b_count, -1, 3, L.NLIMBS), collision
 
 

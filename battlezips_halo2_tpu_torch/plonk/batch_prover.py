@@ -5,8 +5,8 @@ together, and each phase's polynomial work for the whole batch runs as one
 batched device pass: the commitments through
 ``pcs/ipa.py::commit_lagrange_many`` / ``commit_many`` (``batch_chunk``
 columns per pass), the quotient through
-``ops/gate_eval.py::BatchQuotientEvaluator`` (one VM program, one K1 launch
-per instruction, for up to ``batch_quotient_chunk`` proofs). Host work
+``ops/gate_eval.py::BatchQuotientEvaluator`` (the whole VM program in one
+launch of K1's VM kernel for up to ``batch_quotient_chunk`` proofs). Host work
 (witness synthesis, transcript squeezes, grand products) runs per proof in
 between, and the tail (evaluations, multiopen, IPA, ``_proof_tail``) runs
 per proof, on ``batch_tail_workers`` threads. ``plonk/prover.py::

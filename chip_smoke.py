@@ -12,7 +12,12 @@ from the root of a checkout. In order, it
    the operations bounds;
 2. holds K1-K4, K6 and K7 bit-exact (tolerance 0) against their plain
    PyTorch versions on the same CUDA tensors, including the identity,
-   P == Q and P == -Q cases of the point kernels, and times both;
+   P == Q and P == -Q cases of the point kernels, and times both. K3's
+   window kernel is held, on affine points, against its plain version at
+   the proof path's shapes (a board commitment's 32 and 352 rows of 256
+   buckets, an IPA round's 2 rows of 4, signed c = 10's 104 rows of 513),
+   and timed beside the old route (the two-level running sums, one
+   lane-wise K3 launch per addition);
 3. drives the port's proof path through its public API, reading the
    kernels' launch counts around every phase:
 
@@ -33,9 +38,17 @@ from the root of a checkout. In order, it
      sub-batches), batched with the per-proof tail on two threads and with
      ``dp_devices=1``: equal bytes, each accepted by ``api.verify_session``.
 
-   K1-K7 must each have launched on this path;
+   K1-K7 must each have launched on this path. In the default
+   configuration every phase must launch K3 exactly as often as K2 and K7
+   together (one window aggregation per bucket pass), and a steady proof
+   at most 24 K1 (the quotient program in one launch); the steady proofs
+   also print their spans (``BZ_TORCH_TRACE=1``);
 4. holds K5 bit-exact against its plain version at the board's own
-   extended-domain shape (read from the board's vk), and times it;
+   extended-domain shape (read from the board's vk), and times it; holds
+   K1's VM kernel bit-exact against the plain executor on the card (one
+   elementwise K1 launch per instruction, the old route) and against its
+   plain version, on the board's program and keys (one proof) and the
+   shot's (four proofs), and times all three;
 5. drives the microbenchmark path, ``tools/torch_exp_step_t.py`` at the
    reference's shapes, which holds K8 (one launch, and one launch per
    step) and K9 (every op) bit-exact against their plain chains and times
@@ -84,9 +97,11 @@ MONT_MUL_RESULTS = None  # multiply results of one Montgomery product
 CHAIN_OP_RESULTS = {"add": 24, "sub": 24, "raw": 8, "noop": 0}
 
 KERNELS = {
-    "K1": ("field_op (Montgomery mul / add / sub)", "csrc/field_ops.cu", f"{PALLAS_KERNELS}:263"),
+    "K1": ("quotient_vm (the quotient program in one launch; elementwise field_op beside it)",
+           "csrc/quotient_vm.cu", f"{PALLAS_KERNELS}:263"),
     "K2": ("msm_buckets (incomplete mixed add)", "csrc/msm_buckets.cu", f"{PALLAS_KERNELS}:365"),
-    "K3": ("point_add (complete Jacobian)", "csrc/point_add.cu", f"{PALLAS_KERNELS}:414"),
+    "K3": ("window_sums (window aggregation in one launch; lane-wise point_add beside it)",
+           "csrc/window_sums.cu", f"{PALLAS_KERNELS}:414"),
     "K4": ("ntt_stage (radix-2 DIT butterfly)", "csrc/ntt_stage.cu", f"{PALLAS_KERNELS}:454"),
     "K5": ("butterfly_rows (out-of-place butterfly, row layout)", "csrc/butterfly_rows.cu", f"{PALLAS_KERNELS}:121"),
     "K6": ("point_add_planes (complete Jacobian, coordinate planes)", "csrc/point_add_planes.cu",
@@ -120,6 +135,21 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def once_ms(fn):
+    """(fn(), device time of that one call in ms): for plain versions that
+    take seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -277,6 +307,124 @@ def check_k3(dev, rng: random.Random, lanes: int) -> dict:
     bms, by = bound_ms(R.shape[0] * 3 * 96, R.shape[0] * 16 * MONT_MUL_RESULTS)
     shape = f"{R.shape[0]} generic lanes, Vesta"
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "shape": shape}
+
+
+def _bucket_rows(dev, rng: random.Random, rows: int, nbuck: int):
+    """(rows, nbuck, 3, 8) Vesta bucket sums drawn from a pool of 96 points,
+    each held with two Z, their negations and the identity, with a bucket
+    equal to, or the negation of, the one before it forced in every few
+    buckets."""
+    import torch
+
+    from battlezips_halo2_tpu_torch.curves import limb as C
+    from battlezips_halo2_tpu_torch.curves.host import VESTA
+    from battlezips_halo2_tpu_torch.fields.limb import FQ_SPEC, ints_to_limbs
+
+    q, r = FQ_SPEC.modulus, FQ_SPEC.r_mod_p
+    pts = _vesta_points(rng, 96)
+    words = []
+    for p in pts + pts + [VESTA.neg(p) for p in pts]:
+        lam = rng.randrange(1, q)
+        words += [p[0] * lam**2 * r % q, p[1] * lam**3 * r % q, lam * r % q]
+    pool = torch.cat([ints_to_limbs(words, dev).view(-1, 3, 8), C.infinity(FQ_SPEC, (1,), dev)])
+    gen = torch.Generator().manual_seed(rng.randrange(1 << 62))
+    idx = torch.randint(0, pool.shape[0], (rows, nbuck), generator=gen)
+    kind = torch.randint(0, 8, (rows, nbuck), generator=gen)
+    for b in range(2, nbuck):  # equal (other Z) and opposite neighbours
+        prev = idx[:, b - 1]
+        idx[:, b] = torch.where(kind[:, b] == 0, (prev + 96) % 192, idx[:, b])
+        idx[:, b] = torch.where((kind[:, b] == 1) & (prev < 96), prev + 192, idx[:, b])
+    return pool[idx.to(dev)].contiguous()
+
+
+def _affine_err(spec, got, want) -> int:
+    """max |a - b| over the affine coordinates of two Jacobian batches (the
+    identity as (0, 0), which is on neither curve)."""
+    from battlezips_halo2_tpu_torch.curves import limb as C
+
+    pairs = zip(C.jacobian_to_affine(spec, got), C.jacobian_to_affine(spec, want))
+    return max((abs(x - y) for a, b in pairs for x, y in zip(a or (0, 0), b or (0, 0))), default=0)
+
+
+def check_k3_windows(dev, rng: random.Random, shapes) -> dict:
+    """K3's window kernel against window_sums_plain on affine points (the
+    two add in different orders), at every (rows, nbuck) of ``shapes``;
+    times the kernel, its plain version and the old route (the two-level
+    running sums over the lane-wise K3, one launch per addition) at each.
+    The first shape is the row's."""
+    from battlezips_halo2_tpu_torch.curves import limb as C
+    from battlezips_halo2_tpu_torch.fields.limb import FQ_SPEC
+    from battlezips_halo2_tpu_torch.ops import msm as M
+
+    spec, err, per_shape = FQ_SPEC, 0, []
+    for rows, nbuck in shapes:
+        buckets = _bucket_rows(dev, rng, rows, nbuck)
+        got = M.window_sums(spec, buckets, nbuck)
+        want, plain = once_ms(lambda: M.window_sums_plain(spec, buckets, nbuck))
+        err = max(err, _affine_err(spec, got, want))
+        ms = cuda_ms(lambda: M.window_sums(spec, buckets, nbuck), 20)
+        old = cuda_ms(lambda: M._aggregate_windows(spec, buckets, nbuck), 5)
+        m = nbuck - 1
+        bms, by = bound_ms(rows * (nbuck + 1) * 96, rows * 2 * m * 16 * MONT_MUL_RESULTS)
+        threads, seg = M.window_layout(rows, m, M.window_resident(buckets.device))
+        per_shape.append({"rows": rows, "nbuck": nbuck, "threads_per_row": threads, "segment": seg, "ms": ms,
+                          "old_route_ms": old, "plain_ms": plain, "bound_ms": bms, "bound_by": by})
+    first = per_shape[0]
+    return {"max_abs_err": err, "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "old_route_ms": first["old_route_ms"], "per_shape": per_shape,
+            "shape": f"{first['rows']} rows x {first['nbuck']} buckets, Vesta (per_shape: every shape)",
+            "resident_threads": M.window_resident(buckets.device)}
+
+
+def _vm_case(dev, rng: random.Random, vk, nb: int) -> dict:
+    """K1's VM kernel on a key's program at nb proofs of random polynomials
+    and challenges, against the kernel's plain version and the stepwise
+    route (the old route: the plain version's loop over the elementwise K1
+    kernel, one launch per instruction); all three timed."""
+    from battlezips_halo2_tpu_torch.fields import limb as L
+    from battlezips_halo2_tpu_torch.fields.host import FP
+    from battlezips_halo2_tpu_torch.fields.limb import FP_SPEC
+    from battlezips_halo2_tpu_torch.ops import gate_eval as G
+    from battlezips_halo2_tpu_torch.plonk.arguments import ProofSchedule
+
+    ev = G.BatchQuotientEvaluator(vk, ProofSchedule.build(vk.cs), dev)
+    p, n, ext = FP.modulus, vk.domain.n, vk.domain.extended_n
+    polys = [{k: [rng.randrange(p) for _ in range(n)] for k in ev.keys} for _ in range(nb)]
+    per, ch = ev.inputs(polys, [tuple(rng.randrange(p) for _ in range(4)) for _ in range(nb)])
+    srcs = ev.sources(per, ch)
+
+    def run():
+        return G.quotient_vm(FP_SPEC, ev.prog_t, ev.desc, srcs, ev.t_inv, nb, ev.n_regs)
+
+    def stepwise():
+        return G.quotient_vm_plain(FP_SPEC, ev.prog_t, ev.desc, srcs, ev.t_inv, nb, ev.n_regs, op=L.field_op)
+
+    got = run()
+    err = max_abs_err(got, stepwise())
+    want, plain = once_ms(lambda: G.quotient_vm_plain(FP_SPEC, ev.prog_t, ev.desc, srcs, ev.t_inv, nb, ev.n_regs))
+    err = max(err, max_abs_err(got, want))
+    ms = cuda_ms(run, 20)
+    old = cuda_ms(stepwise, 3)
+    lanes, n_instr = nb * ext, ev.vm_size[0]
+    muls = int((ev.prog_t[:, 0] == G.OP_MUL).sum())
+    ops = lanes * ((muls + 1) * MONT_MUL_RESULTS + (n_instr - muls) * CHAIN_OP_RESULTS["add"])
+    polys_read = {(s, row0): sb for s, row0, sb, sl, _ in ev.desc.tolist() if sl}
+    nbytes = sum(ext * 32 * (nb if sb else 1) for sb in polys_read.values()) + ext * 32 + lanes * 32
+    bms, by = bound_ms(nbytes, ops)
+    n_temps = ev.n_regs - 1 - len(ev.pin_keys)
+    shape = (f"B={nb} x ext {ext}: {n_instr} instructions ({muls} mul), {len(ev.pin_keys)} pins, "
+             f"{n_temps} temporaries")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "old_route_ms": old, "bound_ms": bms, "bound_by": by,
+            "shape": shape}
+
+
+def check_k1_vm(dev, rng: random.Random, board_vk, shot_vk) -> dict:
+    """K1's VM at the proof path's shapes: the board's program (one proof)
+    and the shot's (four proofs, a batched session's shots)."""
+    board = _vm_case(dev, rng, board_vk, 1)
+    shot = _vm_case(dev, rng, shot_vk, 4)
+    return {**board, "max_abs_err": max(board["max_abs_err"], shot["max_abs_err"]),
+            "shape": f"board {board['shape']} (shot: {shot['shape']})", "shot": shot}
 
 
 def check_k6(dev, rng: random.Random, lanes: int) -> dict:
@@ -439,14 +587,34 @@ class Phases:
         out = fn()
         torch.cuda.synchronize()
         self.seconds[name] = time.time() - t
-        self.launches[name] = {k: cuda.launches[k] - before[k] for k in before}
-        log(f"phase {name}: {self.seconds[name]:.3f} s, launches {self.launches[name]}")
+        delta = self.launches[name] = {k: cuda.launches[k] - before[k] for k in before}
+        log(f"phase {name}: {self.seconds[name]:.3f} s, launches {delta}")
+        if not any(os.environ.get(flag) for flag in ROW_FLAGS) and delta["K3"] != delta["K2"] + delta["K7"]:
+            raise AssertionError(f"{name}: {delta['K3']} K3 launches, not one per bucket pass (K2 + K7)")
         return out
 
 
 def _tampered(proof: bytes) -> bytes:
     mid = len(proof) // 2
     return proof[:mid] + bytes([proof[mid] ^ 1]) + proof[mid + 1 :]
+
+
+STEADY_K1_MAX = 24  # quotient program in one launch + to_mont / from_mont / coset and iNTT scales
+
+
+def _steady(timed: Phases, name: str, prove):
+    """A steady-state proof with its spans printed (BZ_TORCH_TRACE=1); it
+    must launch K1 at most STEADY_K1_MAX times."""
+    os.environ["BZ_TORCH_TRACE"] = "1"
+    try:
+        proof = timed(name, prove)
+    finally:
+        os.environ.pop("BZ_TORCH_TRACE")
+    k1 = timed.launches[name]["K1"]
+    log(f"K1 launches in {name}: {k1}")
+    if k1 > STEADY_K1_MAX:
+        raise AssertionError(f"{name}: {k1} K1 launches, more than {STEADY_K1_MAX}")
+    return proof
 
 
 def run_shot(dev, timed: Phases) -> None:
@@ -478,10 +646,8 @@ def run_shot(dev, timed: Phases) -> None:
     tampered = api.ShotProof(proof.commitment, proof.shot, proof.hit, _tampered(proof.proof))
     if timed("verify_shot (tampered)", lambda: api.verify_shot(tampered, device=dev)):
         raise AssertionError("verify_shot accepted a tampered proof")
-    second = timed(
-        "prove_shot (fresh rng, steady state)",
-        lambda: api.prove_shot(board.state(), 0xBEEF, (3, 3), True, rng=random.Random(8), device=dev),
-    )
+    second = _steady(timed, "prove_shot (fresh rng, steady state)",
+                     lambda: api.prove_shot(board.state(), 0xBEEF, (3, 3), True, rng=random.Random(8), device=dev))
     if not timed("verify_shot (fresh proof)", lambda: api.verify_shot(second, device=dev)):
         raise AssertionError("verify_shot rejected a fresh proof")
 
@@ -513,10 +679,8 @@ def run_board(dev, timed: Phases, tag: str) -> None:
     tampered = api.BoardProof(proof.commitment, _tampered(proof.proof))
     if timed(f"verify_board (tampered) [{tag}]", lambda: api.verify_board(tampered, device=dev)):
         raise AssertionError(f"verify_board accepted a tampered proof [{tag}]")
-    second = timed(
-        f"prove_board (fresh rng, steady state) [{tag}]",
-        lambda: api.prove_board(GOLDEN_PLACEMENTS, 0xBEEF, rng=random.Random(8), device=dev),
-    )
+    second = _steady(timed, f"prove_board (fresh rng, steady state) [{tag}]",
+                     lambda: api.prove_board(GOLDEN_PLACEMENTS, 0xBEEF, rng=random.Random(8), device=dev))
     if not timed(f"verify_board (fresh proof) [{tag}]", lambda: api.verify_board(second, device=dev)):
         raise AssertionError(f"verify_board rejected a fresh proof [{tag}]")
 
@@ -737,13 +901,21 @@ def main() -> int:
 
     rng = random.Random(2024)
     t = time.time()
-    rows = {"K1": check_k1(dev, rng, 1 << 13, 1 << 14)}
+    lane_wise = {"K1": check_k1(dev, rng, 1 << 13, 1 << 14)}
+    rows = {}
     rows["K4"] = check_k4(dev, rng, [(4, 11), (2, 13)], 44, 14)
-    rows["K3"] = check_k3(dev, rng, 4096)
+    lane_wise["K3"] = check_k3(dev, rng, 4096)
+    # a board commit batch's window sums (c = 8: 32 windows of 256 buckets, one
+    # column and 11 columns), an IPA round's (c = 2), signed c = 10 (26 windows x 4)
+    rows["K3"] = check_k3_windows(dev, rng, [(352, 256), (32, 256), (2, 4), (104, 513)])
     rows["K2"], rows["K7"] = check_k2_k7(dev, rng, 2049, 11)
     rows["K6"] = check_k6(dev, rng, 4096)
     log(f"phase kernels vs plain: {time.time() - t:.3f} s")
-    report_rows(rows)
+    report_rows({**rows, "K1 elementwise field_op": lane_wise["K1"], "K3 lane-wise point_add": lane_wise["K3"]})
+    for r in rows["K3"]["per_shape"]:
+        log(f"  K3 window_sums {r['rows']} x {r['nbuck']} ({r['threads_per_row']} threads x {r['segment']}): "
+            f"{r['ms']:.4f} ms, old route {r['old_route_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
 
     # the proof path: K1-K7
     cuda.reset_launches()
@@ -763,7 +935,13 @@ def main() -> int:
     vk = api.board_keys(dev)[1].vk
     batch = len(quotient_poly_keys(vk.cs, ProofSchedule.build(vk.cs).num_perm_chunks))
     rows["K5"] = check_k5(dev, rng, [(4, 11), (2, 13)], batch, vk.domain.extended_n.bit_length() - 1)
-    report_rows({"K5": rows["K5"]})
+    # K1's VM on the board's program (one proof) and the shot's (four proofs)
+    t = time.time()
+    rows["K1"] = check_k1_vm(dev, rng, vk, api.shot_keys(dev)[1].vk)
+    log(f"phase K1 VM vs plain: {time.time() - t:.3f} s")
+    report_rows({"K5": rows["K5"], "K1": rows["K1"], "K1 (shot, B=4)": rows["K1"]["shot"]})
+    for name in ("K1", "K3"):
+        log(f"  {name} old route: {rows[name]['old_route_ms']:.4f} ms against {rows[name]['ms']:.4f} ms")
 
     # the microbenchmark path: K8 and K9
     cuda.reset_launches()
@@ -781,7 +959,11 @@ def main() -> int:
     kernels = []
     for name, (fn, src, replaces) in KERNELS.items():
         r = rows[name]
-        extra = {k: r[k] for k in ("ms_launch_per_step", "per_op") if k in r}
+        extra = {k: r[k] for k in ("ms_launch_per_step", "per_op", "old_route_ms", "per_shape", "resident_threads", "shot") if k in r}
+        if name in lane_wise:  # the elementwise kernel beside the new entry, under the same name
+            extra["elementwise_kernel"] = {**lane_wise[name], "source": {
+                "K1": "battlezips_halo2_tpu_torch/csrc/field_ops.cu",
+                "K3": "battlezips_halo2_tpu_torch/csrc/point_add.cu"}[name]}
         kernels.append({
             "name": f"{name} {fn}", "route": "cuda", "source": f"battlezips_halo2_tpu_torch/{src}",
             "replaces": replaces, "launches": launches[name], "max_abs_err": r["max_abs_err"],

@@ -23,10 +23,11 @@ from battlezips_halo2_tpu_torch.config import FrameworkConfig, config
 from battlezips_halo2_tpu_torch.fields import limb as L
 from battlezips_halo2_tpu_torch.fields.host import FP
 from battlezips_halo2_tpu_torch.ops.gate_eval import BatchQuotientEvaluator, QuotientEvaluator
-from battlezips_halo2_tpu_torch.plonk import Circuit, create_proofs_batched, verify_proof
+from battlezips_halo2_tpu_torch.plonk import create_proofs_batched, verify_proof
 from battlezips_halo2_tpu_torch.plonk.arguments import ProofSchedule
 from test_prover import LookupCircuit as RefLookupCircuit
 from test_prover import MulCircuit as RefMulCircuit
+from test_torch_inputs import LookupCircuit
 from test_torch_slice import GOLDEN, MulCircuit
 
 P = FP.modulus
@@ -42,41 +43,6 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
-
-
-class LookupCircuit(Circuit):
-    """tests/test_prover.py::LookupCircuit on the port's plonk layer."""
-
-    def __init__(self, values):
-        self.values = values
-
-    @classmethod
-    def configure(cls, cs):
-        a = cs.advice_column()
-        cs.enable_equality(a)
-        table = cs.lookup_table_column()
-        s = cs.selector()
-        cs.lookup("in-table", [(s.expr() * a.cur(), table.inner.cur())])
-        return (a, table, s)
-
-    def synthesize(self, config, layouter):
-        a, table, s = config
-
-        def table_fn(t):
-            for i in range(16):
-                t.assign_cell(f"t{i}", table, i, i)
-
-        layouter.assign_table("table", table_fn)
-
-        def region(r):
-            for i, v in enumerate(self.values):
-                r.enable_selector("lk", s, i)
-                r.assign_advice("a", a, i, v)
-
-        layouter.assign_region("values", region)
-
-    def without_witnesses(self):
-        return LookupCircuit([0] * len(self.values))
 
 
 def _mul_keys():
@@ -174,17 +140,17 @@ def test_batch_quotient_matches_sequential_on_lookup_keys(monkeypatch):
     chals = [tuple(rng.randrange(P) for _ in range(4)) for _ in range(2)]
 
     calls = []
-    field_op = L.field_op
+    plain_field_op = L.plain_field_op
 
     def counting(*args, **kw):
         calls.append(tuple(args[3].shape))
-        return field_op(*args, **kw)
+        return plain_field_op(*args, **kw)
 
-    monkeypatch.setattr(L, "field_op", counting)
+    monkeypatch.setattr(L, "plain_field_op", counting)
     got = batch(polys, chals)
     # a VM instruction is the one call whose second operand is a register
     # of the whole batch: exactly one per instruction
-    assert calls.count((2, vk.domain.extended_n, L.NLIMBS)) == len(batch.prog)
+    assert calls.count((2, vk.domain.extended_n, L.NLIMBS)) == batch.vm_size[0]
     assert got == [seq(p, c) for p, c in zip(polys, chals)]
     ref = RefQuotientEvaluator(ref_pk.vk, RefProofSchedule.build(ref_pk.vk.cs))
     assert got == [ref(p, c) for p, c in zip(polys, chals)]

@@ -1,7 +1,8 @@
 """The port stands alone and runs on the card unless told otherwise:
 no module of battlezips_halo2_tpu_torch, nor chip_smoke.py,
-tools/torch_profile_shot.py or tools/torch_exp_step_t.py, imports JAX or
-the JAX package; entry points refuse the CPU unless ``device="cpu"``;
+tools/torch_profile_shot.py or tools/torch_exp_step_t.py, nor the card's
+tests (tests/test_torch_kernels.py and the inputs it takes from
+tests/test_torch_inputs.py), imports JAX or the JAX package; entry points refuse the CPU unless ``device="cpu"``;
 chip_smoke.py fails without a card and outside a checkout."""
 
 import ast
@@ -31,7 +32,8 @@ def _imports(path: Path) -> set[str]:
 @pytest.mark.parametrize(
     "path",
     sorted(PORT.rglob("*.py"))
-    + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_profile_shot.py", ROOT / "tools" / "torch_exp_step_t.py"],
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_profile_shot.py", ROOT / "tools" / "torch_exp_step_t.py"]
+    + [ROOT / "tests" / "test_torch_kernels.py", ROOT / "tests" / "test_torch_inputs.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_imports(path):

@@ -12,8 +12,11 @@ from battlezips_halo2_tpu_torch.curves import limb as C
 from battlezips_halo2_tpu_torch.curves.host import VESTA
 from battlezips_halo2_tpu_torch.fields import limb as L
 from battlezips_halo2_tpu_torch.fields.host import FP
+from battlezips_halo2_tpu_torch.ops import gate_eval as G
 from battlezips_halo2_tpu_torch.ops import msm as M
 from battlezips_halo2_tpu_torch.ops import ntt as D
+from battlezips_halo2_tpu_torch.plonk.arguments import ProofSchedule
+from test_torch_inputs import bucket_rows, host_window_sum, in_place_program, port_vk
 
 pytestmark = pytest.mark.gpu
 
@@ -75,6 +78,48 @@ def test_k2_k7_bucket_sums(cuda, complete):
     want = M.bucket_sums_plain(spec, table, src, starts, complete)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert bool(got[1][0]) == (not complete)
+
+
+@pytest.mark.parametrize(
+    "rows,nbuck,tile", [(2, 4, 1), (32, 256, 1), (3, 513, 1), (5, 6, 1), (10, 64, 110)],
+    ids=["ipa_c2", "board_c8", "signed_c10", "m5", "narrow_rows"],
+)
+def test_k3_window_sums(cuda, rows, nbuck, tile):
+    """The window kernel against window_sums' plain version and the host
+    group law, on affine points (the two add in different orders); with
+    1100 rows (10 repeated) of 63 buckets a row takes 32 threads."""
+    spec = L.FQ_SPEC
+    buckets, pts = bucket_rows(rows, nbuck, 30 + nbuck, cuda)
+    got = C.jacobian_to_affine(spec, M.window_sums(spec, buckets.repeat(tile, 1, 1, 1), nbuck))
+    assert got[:rows] == C.jacobian_to_affine(spec, M.window_sums_plain(spec, buckets, nbuck))
+    assert got == [host_window_sum(row) for row in pts] * tile
+
+
+@pytest.mark.parametrize("name,nb", [("mul", 1), ("mul", 2), ("lookup", 2)])
+def test_k1_quotient_vm(cuda, name, nb):
+    """The VM kernel on the k=5 MulCircuit's and the k=6 LookupCircuit's
+    programs (rotations 0, +1, -1, the usable row) equals the stepwise
+    route on the card (the plain version's loop over the elementwise K1
+    kernel, one launch per instruction) and the kernel's plain version,
+    bit for bit."""
+    vk = port_vk(name, cuda)
+    ev = G.BatchQuotientEvaluator(vk, ProofSchedule.build(vk.cs), cuda)
+    rng = random.Random(nb)
+    p, n = FP.modulus, vk.domain.n
+    polys = [{k: [rng.randrange(p) for _ in range(n)] for k in ev.keys} for _ in range(nb)]
+    per, ch = ev.inputs(polys, [tuple(rng.randrange(p) for _ in range(4)) for _ in range(nb)])
+    got = ev.h_ext(per, ch)
+    args = (L.FP_SPEC, ev.prog_t, ev.desc, ev.sources(per, ch), ev.t_inv, nb, ev.n_regs)
+    assert torch.equal(got, G.quotient_vm_plain(*args, op=L.field_op))
+    assert torch.equal(got, G.quotient_vm_plain(*args))
+
+
+def test_k1_quotient_vm_in_place(cuda):
+    """A destination register that is also an operand, in the kernel."""
+    args, want = in_place_program(cuda)
+    got = G.quotient_vm(L.FP_SPEC, *args)
+    assert L.limbs_to_ints(L.from_mont(L.FP_SPEC, got)) == want
+    assert torch.equal(got, G.quotient_vm_plain(L.FP_SPEC, *args))
 
 
 def test_k5_butterfly_rows(cuda):

@@ -1,8 +1,10 @@
 """Port MSM (ops/msm.py: digits, kernels K2 / K7 / K3 / K6 through their
 plain versions on the CPU, the host window fold) against the JAX package's
 host Pippenger (Curve.pippenger), its ``msm`` and its digit extraction, in
-the default and the row-layout (BZ_ROW_MSM) configuration. Exact
-comparisons (tolerance 0)."""
+the default and the row-layout (BZ_ROW_MSM) configuration; the window
+aggregation (K3's ``window_sums``) against the host group law. Exact
+comparisons (tolerance 0), on affine points where the order of additions
+may differ."""
 
 import random
 
@@ -14,6 +16,7 @@ from battlezips_halo2_tpu.ops import msm as JM
 from battlezips_halo2_tpu_torch.curves.host import PALLAS, VESTA
 from battlezips_halo2_tpu_torch.fields.limb import ints_to_limbs
 from battlezips_halo2_tpu_torch.ops import msm as M
+from test_torch_inputs import bucket_rows, host_window_sum
 
 
 @pytest.fixture(autouse=True)
@@ -139,3 +142,57 @@ def test_row_msm_has_no_collision_redo(monkeypatch):
     wsums, collision = M.msm_wsums(spec, table, ints_to_limbs([3] * len(pts), "cpu").view(1, -1, 8), 4, False)
     assert not collision
     assert M.host_window_fold(VESTA, M.C.jacobian_to_affine(spec, wsums), 4) == VESTA.mul(p, 3 * len(pts))
+
+
+@pytest.mark.parametrize(
+    "rows,nbuck", [(2, 4), (3, 256), (2, 513), (3, 6)], ids=["c2", "c8", "c10_signed", "m5"]
+)
+def test_window_sums_match_host_group_law(rows, nbuck):
+    """window_sums (on the CPU its plain version, the two-level running
+    sums) gives T = sum_b b S_b per row: unsigned c = 2 and c = 8, signed
+    c = 10 (2^9 + 1 buckets) and m = 5, which no power-of-two segment
+    divides; with empty, equal and opposite buckets."""
+    spec = M.FieldSpec.make(VESTA.base.modulus)
+    buckets, pts = bucket_rows(rows, nbuck, nbuck, "cpu")
+    got = M.window_sums(spec, buckets, nbuck)
+    assert got.shape == (rows, 3, 8)
+    assert M.C.jacobian_to_affine(spec, got) == [host_window_sum(row) for row in pts]
+
+
+@pytest.mark.parametrize("rows", [1, 2, 32, 352, 1024, 5000])
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 255, 512])
+def test_window_layout(rows, m):
+    """K3's split of a row: powers of two, threads x segment covers m by
+    less than a doubling, at most a block, and at least 32 threads a row
+    (or every bucket) however many rows there are; above 32 threads the
+    rows fit in the resident threads (here 132 SMs x 2 blocks of 128)."""
+    resident = 132 * 2 * M.WINDOW_BLOCK
+    threads, seg = M.window_layout(rows, m, resident)
+    assert threads & (threads - 1) == 0 and seg & (seg - 1) == 0
+    assert m <= threads * seg < 2 * m or threads * seg == 1
+    assert min(32, threads * seg) <= threads <= M.WINDOW_BLOCK
+    assert threads <= 32 or rows * threads <= resident
+
+
+def test_one_window_aggregation_per_bucket_pass(monkeypatch):
+    """In the default configuration every msm_wsums call aggregates its
+    windows once through window_sums, the collision redo included, so K3
+    launches equal K2 plus K7 launches on the card."""
+    calls = {"buckets": 0, "windows": 0}
+    bucket_sums, window_sums = M.bucket_sums, M.window_sums
+
+    def count(name, fn):
+        def wrapped(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+
+        return wrapped
+
+    monkeypatch.setattr(M, "bucket_sums", count("buckets", bucket_sums))
+    monkeypatch.setattr(M, "window_sums", count("windows", window_sums))
+    p = VESTA.mul(VESTA.generator, 12345)
+    pts = [p] * M.COMPLETE_BELOW  # equal points, equal digits: K2 collides, K7 redoes
+    assert M.msm(VESTA, pts, [3] * len(pts), "cpu") == VESTA.mul(p, 3 * len(pts))
+    assert calls == {"buckets": 2, "windows": 2}
+    assert M.msm(VESTA, pts[:5], [1, 2, 3, 4, 5], "cpu") == VESTA.mul(p, 15)
+    assert calls == {"buckets": 3, "windows": 3}

@@ -18,45 +18,12 @@ from battlezips_halo2_tpu.plonk import create_proof as ref_create_proof
 from battlezips_halo2_tpu.plonk import keygen as ref_keygen
 from battlezips_halo2_tpu.plonk import verify_proof as ref_verify_proof
 from battlezips_halo2_tpu_torch import convert
-from battlezips_halo2_tpu_torch.gadgets.common import with_selector
 from battlezips_halo2_tpu_torch.pcs.ipa import Params
-from battlezips_halo2_tpu_torch.plonk import Circuit, create_proof, keygen, verify_proof
+from battlezips_halo2_tpu_torch.plonk import create_proof, keygen, verify_proof
 from test_prover import MulCircuit as RefMulCircuit
+from test_torch_inputs import MulCircuit
 
 GOLDEN = json.loads((Path(__file__).resolve().parent / "golden" / "mul_k5.json").read_text())
-
-
-class MulCircuit(Circuit):
-    """tests/test_prover.py::MulCircuit on the port's plonk layer."""
-
-    def __init__(self, a, b, c):
-        self.a, self.b, self.c = a, b, c
-
-    @classmethod
-    def configure(cls, cs):
-        a, b, c = cs.advice_column(), cs.advice_column(), cs.advice_column()
-        inst = cs.instance_column()
-        s = cs.selector()
-        for col in (a, b, c):
-            cs.enable_equality(col)
-        cs.enable_equality(inst)
-        cs.create_gate("mul", with_selector(s.expr(), [("a*b=c", a.cur() * b.cur() - c.cur())]))
-        return (a, b, c, inst, s)
-
-    def synthesize(self, config, layouter):
-        a, b, c, inst, s = config
-
-        def region(r):
-            r.enable_selector("mul", s, 0)
-            r.assign_advice("a", a, 0, self.a)
-            r.assign_advice("b", b, 0, self.b)
-            return r.assign_advice("c", c, 0, self.c)
-
-        out = layouter.assign_region("mul", region)
-        layouter.constrain_instance(out, inst, 0)
-
-    def without_witnesses(self):
-        return MulCircuit(1, 1, 1)
 
 
 @pytest.fixture(autouse=True)
