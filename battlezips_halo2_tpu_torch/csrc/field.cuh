@@ -136,8 +136,19 @@ __device__ __forceinline__ Fe fe_sub(const FieldConsts& F, const Fe& a, const Fe
   return d;
 }
 
+// A source that defines BZ_FE_MUL_CALL before including this header calls
+// one out-of-line copy of the product instead of inlining it. A point
+// addition inlines 11-24 products of ~400 instructions each; on the H100
+// the call cut the time of long addition chains by a third to a half, and
+// slowed the quotient VM by half (PERF.md §6).
+#ifdef BZ_FE_MUL_CALL
+#define BZ_FE_MUL_DECL static __device__ __noinline__
+#else
+#define BZ_FE_MUL_DECL __device__ __forceinline__
+#endif
+
 // Montgomery product a * b * 2^-256 mod p (CIOS), a, b < p.
-__device__ __forceinline__ Fe fe_mul(const FieldConsts& F, const Fe& a, const Fe& b) {
+BZ_FE_MUL_DECL Fe fe_mul(const FieldConsts& F, const Fe& a, const Fe& b) {
   uint32_t t[BZ_NL + 2];
 #pragma unroll
   for (int i = 0; i < BZ_NL + 2; ++i) t[i] = 0u;

@@ -58,8 +58,11 @@ _SIGNATURES = {
     "bz_butterfly_rows": (_P, _P, _P, _P, _P, _P, _I64, _I64, _P),
     # consts, p planes, q planes, out planes, n, stream
     "bz_point_add_planes": (_P, _P, _P, _P, _I64, _P),
-    # consts, complete, table, src, starts, out, flags, nb, stream
-    "bz_msm_buckets": (_P, _INT, _P, _P, _P, _P, _P, _I64, _P),
+    # consts, complete, table, src, bid, starts, out, flags, carry, carry flags, layout, nb, resident,
+    # threads, stream
+    "bz_msm_buckets": (_P, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    # complete, resident threads of the bucket pass's phase A on the current card (out)
+    "bz_msm_bucket_resident": (_INT, ctypes.POINTER(_I64)),
     # consts, acc (in place), pxy, heads, n, first step, end step, stream
     "bz_step_chain": (_P, _P, _P, _P, _I64, _INT, _INT, _P),
     # op, consts, a, b, out, n, reps, stream

@@ -7,10 +7,24 @@ For a batch of B scalar vectors over one table of N affine points:
 2. every (MSM, window, digit) row gets a bucket id; one ``torch.sort`` of
    packed (bucket, point) keys groups the rows by bucket and
    ``searchsorted`` gives each bucket's run, digit-0 rows being left out;
-3. kernel K2 (``csrc/msm_buckets.cu``) sums every bucket's run in one
-   thread, with the incomplete mixed addition and its P == Q flag. If any
-   live bucket raised the flag the batch is redone with the complete law
-   (K7, the kernel's complete variant), which small MSMs run directly;
+3. kernel K2 (``csrc/msm_buckets.cu``; it replaces
+   ``pallas_kernels.py:365`` msm_step_T, and its complete variant K7
+   ``:227`` msm_step_rows) sums every bucket's run in one C call. Phase A
+   cuts the sorted rows into equal chunks of L rows, one a thread, over
+   one wave of resident threads (:func:`bucket_resident`, from the CUDA
+   occupancy calculator; L is the shortest such chunk, or a quarter of
+   the longest run if that is longer, :func:`bucket_layout`): a thread
+   walks its chunk with the mixed addition, incomplete with its P == Q
+   flag for K2, writes the runs that begin and end inside it, and carries
+   the first and last segment when a run crosses its edges. Phase B gives
+   every run that crosses a chunk boundary one thread, which adds its
+   pieces in chunk order with the complete addition. With one thread per
+   bucket a launch would wait for the longest run (and, at the board's
+   commit batches, for a second wave); here it waits for L mixed and at
+   most four complete additions. Its bound is the ~11 Montgomery products
+   per row after its bucket's head, at the card's 32-bit multiply rate.
+   If any live bucket raised the flag the batch is redone with the
+   complete law (K7), which small MSMs run directly;
 4. per window, T_w = sum_b b S_b in one launch of kernel K3
    (``csrc/window_sums.cu``) for every window of the batch: each row's
    buckets are split over the threads of a block, which combine their
@@ -20,8 +34,9 @@ For a batch of B scalar vectors over one table of N affine points:
 5. the host converts the B x W window sums to affine and folds them,
    sum_w 2^(c w) T_w (host_window_fold).
 
-This replaces the reference's lax.scan over lane runs and its lane-boundary
-repair: a thread walks a whole bucket, so no run is ever split.
+This replaces the reference's lax.scan over lane runs, one launch per
+step, and its lane-boundary repair: here a thread walks its whole chunk in
+one launch, and the repair is phase B of the same C call.
 
 Under ``BZ_ROW_MSM`` the MSM takes the route of the reference's row-layout
 kernels: every bucket run goes through the complete law (K7), with no
@@ -109,45 +124,157 @@ def signed_digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
 # ------------------------------------------------------------- K2 / K7
 
 
-def bucket_sums_plain(spec: FieldSpec, table, src, starts, complete: bool):
-    """The plain PyTorch version of K2 (K7 when ``complete``): step s adds
-    the s-th point of every run longer than s."""
+BUCKET_BLOCK = 128  # threads of a block of csrc/msm_buckets.cu
+_bucket_resident: dict = {}
+
+
+def bucket_resident(device: torch.device, complete: bool) -> int:
+    """Threads of the bucket pass's phase A (K2, or K7 when ``complete``)
+    that the card holds at once: its SMs x the blocks an SM keeps resident,
+    from the CUDA occupancy calculator on the built kernel; asked once per
+    card and variant."""
+    from . import cuda
+
+    key = (device, bool(complete))
+    if key not in _bucket_resident:
+        n = ctypes.c_longlong()
+        with torch.cuda.device(device):
+            status = cuda.library().bz_msm_bucket_resident(int(complete), ctypes.byref(n))
+        cuda.check(status, "K2/K7 bz_msm_bucket_resident")
+        if n.value < BUCKET_BLOCK:
+            raise RuntimeError(f"the bucket kernel fits no block on {device}: {n.value} resident threads")
+        _bucket_resident[key] = n.value
+    return _bucket_resident[key]
+
+
+# A run is cut into at most about this many chunks: the chunk length is
+# at least ceil(longest run / BUCKET_SPAN) (csrc/msm_buckets.cu, BZ_MB_SPAN).
+BUCKET_SPAN = 4
+
+
+def bucket_layout(rows: int, resident: int, longest: int) -> tuple[int, int]:
+    """(chunk length L, chunks) of a bucket pass over ``rows`` sorted rows
+    with ``resident`` threads (:func:`bucket_resident`) and a longest run of
+    ``longest`` rows: L = max(1, ceil(rows / resident), ceil(longest /
+    BUCKET_SPAN)), the shortest chunks that one wave covers unless a run
+    would cross more than BUCKET_SPAN chunk boundaries, and ceil(rows / L)
+    <= resident chunks. csrc/msm_buckets.cu computes the same on the card
+    from starts."""
+    chunk = max(1, -(-rows // resident), -(-longest // BUCKET_SPAN))
+    return chunk, -(-rows // chunk)
+
+
+def bucket_sums_plain(spec: FieldSpec, table, src, starts, complete: bool, chunk: int | None = None):
+    """The plain PyTorch version of K2 (K7 when ``complete``), on the
+    kernel's schedule: the rows are cut into chunks of ``chunk`` rows, each
+    walked with a lift at every bucket's segment head and the mixed
+    addition after it (phase A, one lane per chunk and one step per row),
+    then every run that crosses a chunk boundary adds its pieces in chunk
+    order with the complete addition (phase B, one lane per such run). With
+    the kernel's L it gives its Jacobian coordinates and flags exactly.
+    ``chunk`` None: :func:`bucket_layout` with as many threads as
+    non-empty buckets (on the CPU no card's wave applies)."""
     nb = starts.shape[0] - 1
-    first = starts[:-1].to(torch.int64)
-    lens = starts[1:].to(torch.int64) - first
-    acc = C.infinity(spec, (nb,), table.device)
-    flags = torch.zeros(nb, dtype=torch.int32, device=table.device)
-    live = torch.nonzero(lens > 0).flatten()
-    acc[live] = C.lift_plain(spec, table[src[first[live]].to(torch.int64)])
-    for s in range(1, int(lens.max()) if nb else 0):
-        live = torch.nonzero(lens > s).flatten()
-        q = table[src[first[live] + s].to(torch.int64)]
-        acc[live], nd = C.point_add_mixed_plain(spec, acc[live], q, complete)
-        flags[live] |= nd.to(torch.int32)
-    return acc, flags
+    dev = table.device
+    bounds = starts.to(torch.int64)
+    rows = int(bounds[-1]) if nb else 0
+    out = C.infinity(spec, (nb,), dev)
+    flags = torch.zeros(nb, dtype=torch.int32, device=dev)
+    if rows == 0:
+        return out, flags
+    lens = bounds.diff()
+    if chunk is None:
+        chunk = bucket_layout(rows, int((lens > 0).sum()), int(lens.max()))[0]
+    chunks = -(-rows // chunk)
+    bid = torch.repeat_interleave(torch.arange(nb, device=dev), lens)
+    pts = table[src[:rows].to(torch.int64)]
+    lo = torch.arange(chunks, device=dev) * chunk
+    hi = torch.clamp(lo + chunk, max=rows)
+    head_in = (lo > 0) & (bid[lo] == bid[(lo - 1).clamp(min=0)])
+    tail_on = (hi < rows) & (bid[hi.clamp(max=rows - 1)] == bid[hi - 1])
+    carry = C.infinity(spec, (2 * chunks,), dev)
+    carry_flags = torch.zeros(2 * chunks, dtype=torch.int32, device=dev)
+    acc = C.infinity(spec, (chunks,), dev)
+    acc_flags = torch.zeros(chunks, dtype=torch.int32, device=dev)
+    first = torch.ones(chunks, dtype=torch.bool, device=dev)
+    # phase A: step j adds row lo + j of every chunk
+    for j in range(min(chunk, rows)):
+        i = lo + j
+        live = i < hi
+        at = i.clamp(max=rows - 1)
+        head = live & ((j == 0) | (bid[at] != bid[(at - 1).clamp(min=0)]))
+        if j:
+            first &= ~head
+        lift = torch.nonzero(head).flatten()
+        acc[lift] = C.lift_plain(spec, pts[i[lift]])
+        acc_flags[lift] = 0
+        add = torch.nonzero(live & ~head).flatten()
+        acc[add], nd = C.point_add_mixed_plain(spec, acc[add], pts[i[add]], complete)
+        acc_flags[add] |= nd.to(torch.int32)
+        # segments that end at this row: written out, or kept for phase B
+        ends = live & ((i + 1 == hi) | (bid[at] != bid[(at + 1).clamp(max=rows - 1)]))
+        as_head = ends & first & head_in
+        as_tail = ends & ~as_head & (i + 1 == hi) & tail_on
+        whole = torch.nonzero(ends & ~as_head & ~as_tail).flatten()
+        out[bid[i[whole]]] = acc[whole]
+        flags[bid[i[whole]]] = acc_flags[whole]
+        for mask, slot in ((as_head, 0), (as_tail, 1)):
+            lanes = torch.nonzero(mask).flatten()
+            carry[2 * lanes + slot] = acc[lanes]
+            carry_flags[2 * lanes + slot] = acc_flags[lanes]
+    # phase B: a run's first boundary t (start in chunk t - 1) adds its pieces
+    t = torch.arange(1, chunks, device=dev)
+    b = bid[t * chunk]
+    t = t[(bid[t * chunk - 1] == b) & (bounds[b] >= (t - 1) * chunk)]
+    b = bid[t * chunk]
+    run = carry[2 * t - 1]
+    run_flags = carry_flags[2 * t - 1].clone()
+    end, u = bounds[b + 1], t.clone()
+    while True:
+        more = torch.nonzero(u * chunk < end).flatten()
+        if not more.numel():
+            break
+        run[more] = C.point_add_plain(spec, run[more], carry[2 * u[more]])
+        run_flags[more] |= carry_flags[2 * u[more]]
+        u += 1
+    out[b] = run
+    flags[b] = run_flags
+    return out, flags
 
 
-def bucket_sums(spec: FieldSpec, table, src, starts, complete: bool):
+def bucket_sums(spec: FieldSpec, table, src, starts, bid, complete: bool):
     """K2 / K7: table (N', 2, 8) affine Montgomery rows, src (rows,) int32
-    table rows sorted by bucket, starts (nb + 1,) int32 run offsets ->
-    (bucket sums (nb, 3, 8), flags (nb,) int32: 1 where the incomplete law
-    met P == Q; always 0 for the complete variant). A CUDA tensor launches
-    the kernel; a CPU tensor runs the plain version."""
+    table rows sorted by bucket, starts (nb + 1,) int32 run offsets, bid
+    (rows,) int32 the bucket of each sorted row -> (bucket sums (nb, 3, 8),
+    flags (nb,) int32: 1 where the incomplete law met P == Q inside a
+    chunk; always 0 for the complete variant). A CUDA tensor launches the
+    kernel's phases in one C call, with the chunk length of
+    :func:`bucket_layout` over one wave of threads (:func:`bucket_resident`);
+    a CPU tensor runs the plain version, which takes its buckets from
+    ``starts``."""
     if not table.is_cuda:
         return bucket_sums_plain(spec, table, src, starts, complete)
     from . import cuda
 
     cuda.require(table, torch.int32, "K2 point table")
     cuda.require(src, torch.int32, "K2 src")
+    cuda.require(bid, torch.int32, "K2 bid")
     cuda.require(starts, torch.int32, "K2 starts")
     nb = starts.shape[0] - 1
-    out = torch.empty(nb, 3, L.NLIMBS, dtype=torch.int32, device=table.device)
-    flags = torch.empty(nb, dtype=torch.int32, device=table.device)
+    dev = table.device
+    out = torch.empty(nb, 3, L.NLIMBS, dtype=torch.int32, device=dev)
+    flags = torch.empty(nb, dtype=torch.int32, device=dev)
     if nb:
+        resident = bucket_resident(dev, complete)
+        threads = max(1, min(resident, src.shape[0]))  # no more chunks than sorted rows
+        carry = torch.empty(2 * threads, 3, L.NLIMBS, dtype=torch.int32, device=dev)
+        carry_flags = torch.empty(2 * threads, dtype=torch.int32, device=dev)
+        layout = torch.empty(1, dtype=torch.int64, device=dev)
         cuda.launch(
             "K7" if complete else "K2", "bz_msm_buckets", table,
-            spec.kernel_consts, int(complete), cuda.ptr(table), cuda.ptr(src), cuda.ptr(starts), cuda.ptr(out),
-            cuda.ptr(flags), nb,
+            spec.kernel_consts, int(complete), cuda.ptr(table), cuda.ptr(src), cuda.ptr(bid), cuda.ptr(starts),
+            cuda.ptr(out), cuda.ptr(flags), cuda.ptr(carry), cuda.ptr(carry_flags), cuda.ptr(layout), nb, resident,
+            threads,
         )
     return out, flags
 
@@ -273,10 +400,12 @@ def bucket_runs(spec: FieldSpec, table, scalars, c: int, signed: bool):
     """Group the rows of B MSMs by bucket.
 
     table (N, 2, 8) affine Montgomery rows (all-zero = identity), scalars
-    (B, N, 8) canonical limbs -> (point table, src, starts, nbuck): src
-    (rows,) int32 table rows sorted by bucket, starts (B W nbuck + 1,) int32
-    run offsets of bucket (b, w, d) at index (b W + w) nbuck + d. Signed
-    digits add the negated points to the table ([P | -P])."""
+    (B, N, 8) canonical limbs -> (point table, src, starts, nbuck, bid):
+    src (rows,) int32 table rows sorted by bucket, starts (B W nbuck + 1,)
+    int32 run offsets of bucket (b, w, d) at index (b W + w) nbuck + d, bid
+    (rows,) int32 the bucket of each sorted row (B W nbuck past the live
+    rows, where the digit-0 rows sort). Signed digits add the negated points
+    to the table ([P | -P])."""
     b_count, n = scalars.shape[:2]
     dev = table.device
     if signed:
@@ -297,8 +426,9 @@ def bucket_runs(spec: FieldSpec, table, scalars, c: int, signed: bool):
     bucket = torch.where(mag == 0, nb, win * nbuck + mag)  # digit 0: no bucket
     keys = torch.sort((bucket * rows_per + src).flatten()).values
     src_sorted = (keys % rows_per).to(torch.int32)
-    starts = torch.searchsorted(keys // rows_per, torch.arange(nb + 1, device=dev)).to(torch.int32)
-    return table.contiguous(), src_sorted, starts, nbuck
+    bid = keys // rows_per
+    starts = torch.searchsorted(bid, torch.arange(nb + 1, device=dev)).to(torch.int32)
+    return table.contiguous(), src_sorted, starts, nbuck, bid.to(torch.int32)
 
 
 def msm_wsums(spec: FieldSpec, table, scalars, c: int, signed: bool, complete: bool = False):
@@ -309,8 +439,8 @@ def msm_wsums(spec: FieldSpec, table, scalars, c: int, signed: bool, complete: b
     b_count = scalars.shape[0]
     row = config().row_msm
     complete = complete or row
-    table, src, starts, nbuck = bucket_runs(spec, table, scalars, c, signed)
-    sums, flags = bucket_sums(spec, table, src, starts, complete)
+    table, src, starts, nbuck, bid = bucket_runs(spec, table, scalars, c, signed)
+    sums, flags = bucket_sums(spec, table, src, starts, bid, complete)
     collision = not complete and bool(flags.any())
     buckets = sums.view(-1, nbuck, 3, L.NLIMBS)
     wsums = _aggregate_windows(spec, buckets, nbuck, planar=True) if row else window_sums(spec, buckets, nbuck)

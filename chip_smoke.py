@@ -12,7 +12,13 @@ from the root of a checkout. In order, it
    the operations bounds;
 2. holds K1-K4, K6 and K7 bit-exact (tolerance 0) against their plain
    PyTorch versions on the same CUDA tensors, including the identity,
-   P == Q and P == -Q cases of the point kernels, and times both. K3's
+   P == Q and P == -Q cases of the point kernels, and times both. K2 and
+   K7 (the bucket pass: equal chunks, then a complete merge of the runs
+   that cross a chunk boundary) are held against their plain version at
+   the kernel's chunk length, in Jacobian coordinates and flags, and on
+   affine points against the host group law: hand-made runs (P then P
+   inside a chunk and across a chunk boundary), all-equal scalars, the
+   board's commit batch, an IPA round and the IPA's 3-point MSM. K3's
    window kernel is held, on affine points, against its plain version at
    the proof path's shapes (a board commitment's 32 and 352 rows of 256
    buckets, an IPA round's 2 rows of 4, signed c = 10's 104 rows of 513),
@@ -99,7 +105,8 @@ CHAIN_OP_RESULTS = {"add": 24, "sub": 24, "raw": 8, "noop": 0}
 KERNELS = {
     "K1": ("quotient_vm (the quotient program in one launch; elementwise field_op beside it)",
            "csrc/quotient_vm.cu", f"{PALLAS_KERNELS}:263"),
-    "K2": ("msm_buckets (incomplete mixed add)", "csrc/msm_buckets.cu", f"{PALLAS_KERNELS}:365"),
+    "K2": ("msm_buckets (chunked walk, incomplete mixed add; boundary merge)", "csrc/msm_buckets.cu",
+           f"{PALLAS_KERNELS}:365"),
     "K3": ("window_sums (window aggregation in one launch; lane-wise point_add beside it)",
            "csrc/window_sums.cu", f"{PALLAS_KERNELS}:414"),
     "K4": ("ntt_stage (radix-2 DIT butterfly)", "csrc/ntt_stage.cu", f"{PALLAS_KERNELS}:454"),
@@ -498,10 +505,119 @@ def check_k5(dev, rng: random.Random, sizes, time_batch: int, time_logn: int) ->
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "shape": shape}
 
 
-def check_k2_k7(dev, rng: random.Random, n_points: int, batch: int) -> tuple[dict, dict]:
-    """K2 and K7 against bucket_sums_plain, on hand-made runs with identity
-    points, P then P, and P then -P, and on the bucket runs of a batch of
-    random MSMs over n_points SRS-like points (the commitment shape)."""
+BOARD_COMMIT_BATCH = 11  # columns of the board's largest commit pass (K3's 352 rows = 11 x 32 windows)
+HAND_CHUNK = 3  # the chunk length the hand-made runs are laid out for
+
+
+def _hand_runs(rng: random.Random, n_points: int, chunk: int, chunks: int):
+    """Hand-made bucket runs over table rows [0, n_points) (points),
+    n_points (the identity) and n_points + 1 + j (the negation of point j),
+    filling exactly chunk x chunks rows, so that K2 / K7 splits them into
+    ``chunks`` chunks of ``chunk`` rows. Kinds, by bucket index mod 8: 1 P
+    then P from a chunk's first row (the incomplete law's collision inside
+    a chunk), 2 P then -P, 3 an identity inside the run, 4 an identity at
+    the head, 5 P then P alone, straddling a chunk boundary, others random; empty
+    runs among them. -> (src, starts, kind of each bucket)."""
+    ident, negs, total = n_points, n_points + 1, chunk * chunks
+    src, starts, kinds = [], [0], []
+
+    def close(run, kind):
+        src.extend(run)
+        starts.append(len(src))
+        kinds.append(kind)
+
+    while len(src) < total:
+        kind = len(kinds) % 8
+        run = [rng.randrange(n_points) for _ in range(rng.randrange(0, 7))]
+        if kind in (1, 5):
+            align = 0 if kind == 1 else chunk - 1
+            if len(src) % chunk != align:  # a filler bucket puts the pair's first P at row align mod chunk
+                close([rng.randrange(n_points) for _ in range((align - len(src)) % chunk)], 0)
+            p = rng.randrange(n_points)
+            run = [p, p] + ([i for i in run if i != p] if kind == 1 else [])
+        elif kind == 2:
+            j = rng.randrange(64)
+            run[0:0] = [j, negs + j]
+        elif kind == 3:
+            run.insert(rng.randrange(len(run) + 1), ident)
+        elif kind == 4:
+            run = [ident] + run
+        close(run, kind)
+    if len(src) > total:  # cut the last run to fill exactly chunk x chunks rows
+        del src[total:]
+        starts[-1], kinds[-1] = total, 0
+    return src, starts, kinds
+
+
+def _run_stats(starts) -> dict:
+    """Rows, buckets and run lengths of a sorted bucket layout."""
+    import torch
+
+    lens = (starts[1:] - starts[:-1]).to(torch.int64)
+    live = lens[lens > 0]
+    return {"rows": int(starts[-1]), "buckets": int(lens.numel()), "live_buckets": int(live.numel()),
+            "mean_run": float(live.double().mean()) if live.numel() else 0.0,
+            "longest_run": int(live.max()) if live.numel() else 0}
+
+
+def _host_bucket_sums(points: list, src: list, starts: list, buckets) -> dict:
+    """{bucket: host sum of its run} for the given buckets; points maps a
+    table row to its affine point (None: the identity)."""
+    from battlezips_halo2_tpu_torch.curves.host import VESTA
+
+    sums = {}
+    for b in buckets:
+        acc = None
+        for i in src[starts[b] : starts[b + 1]]:
+            acc = VESTA.add(acc, points[i])
+        sums[b] = acc
+    return sums
+
+
+def _check_host_law(spec, name: str, out, flags, points, src, starts, buckets) -> int:
+    """Affine bucket sums (where the flag is 0) against the host group law
+    on the given buckets; -> how many were checked."""
+    import torch
+
+    from battlezips_halo2_tpu_torch.curves import limb as C
+
+    buckets = [b for b in buckets if not int(flags[b])]
+    if not buckets:
+        return 0
+    idx = torch.tensor(buckets, device=out.device)
+    got = C.jacobian_to_affine(spec, out.index_select(0, idx))
+    want = _host_bucket_sums(points, src, starts, buckets)
+    if got != [want[b] for b in buckets]:
+        raise AssertionError(f"{name} bucket sums disagree with the host group law")
+    return len(buckets)
+
+
+def _k2_layout(dev, stats: dict, complete: bool) -> tuple[int, int, int]:
+    """(chunk length L, chunks, resident threads) of a bucket pass."""
+    from battlezips_halo2_tpu_torch.ops import msm as M
+
+    resident = M.bucket_resident(dev, complete)
+    return (*M.bucket_layout(stats["rows"], resident, stats["longest_run"]), resident)
+
+
+def check_k2_k7(dev, rng: random.Random, n_points: int = 2049) -> tuple[dict, dict]:
+    """K2 and K7 against bucket_sums_plain at the same chunk length, in
+    Jacobian coordinates and flags, on
+
+    - hand-made runs laid out for chunks of HAND_CHUNK rows: identity
+      heads and identity rows, P then -P, P then P inside a chunk (K2 must
+      flag it) and straddling a chunk boundary (merged by the complete
+      law: no flag);
+    - all-equal scalars: one bucket of n_points rows in every window;
+    - the proof path's shapes: the board's commit batch
+      (BOARD_COMMIT_BATCH x 4097 points, c = 8), an IPA round (2 x 4096,
+      half of the scalars zero), and for K7 the IPA's 3-point MSM (c = 2)
+      and the commit batch (its shape under BZ_ROW_MSM).
+
+    Affine sums are held against the host group law (all of the hand-made
+    special buckets and samples elsewhere; K2 where its flag is 0). Every
+    shape prints its rows, buckets, run lengths, chunk length L and
+    threads, and is timed with its plain version."""
     import torch
 
     from battlezips_halo2_tpu_torch.curves import limb as C
@@ -509,64 +625,97 @@ def check_k2_k7(dev, rng: random.Random, n_points: int, batch: int) -> tuple[dic
     from battlezips_halo2_tpu_torch.fields.limb import FQ_SPEC, ints_to_limbs
     from battlezips_halo2_tpu_torch.ops import msm as M
 
-    spec = FQ_SPEC
-    pts = _vesta_points(rng, n_points)
-    table = C.affine_table(spec, pts + [None] + [VESTA.neg(p) for p in pts[:64]], dev)
-    ident, negs = n_points, n_points + 1
-    src, starts = [], [0]
-    for b in range(4096):
-        kind, length = b % 8, rng.randrange(0, 7)
-        run = [rng.randrange(n_points) for _ in range(length)]
-        if kind == 1 and run:
-            run.insert(1, run[0])  # P then P: the incomplete law's collision
-        elif kind == 2 and run:
-            j = rng.randrange(64)
-            run[0:0] = [j, negs + j]  # P then -P
-        elif kind == 3:
-            run.insert(rng.randrange(len(run) + 1), ident)  # identity inside a run
-        elif kind == 4:
-            run = [ident] + run  # identity at the head
-        src += run
-        starts.append(len(src))
-    src_t = torch.tensor(src, dtype=torch.int32, device=dev)
-    starts_t = torch.tensor(starts, dtype=torch.int32, device=dev)
-    errs, rows = {}, {}
-    for name, complete in (("K2", False), ("K7", True)):
-        out, flags = M.bucket_sums(spec, table, src_t, starts_t, complete)
-        want, want_flags = M.bucket_sums_plain(spec, table, src_t, starts_t, complete)
-        errs[name] = max(max_abs_err(out, want), max_abs_err(flags, want_flags))
-        if complete:
-            exp = []
-            for b in range(len(starts) - 1):
-                acc = None
-                for i in src[starts[b] : starts[b + 1]]:
-                    acc = VESTA.add(acc, None if i == ident else (pts[i] if i < ident else VESTA.neg(pts[i - negs])))
-                exp.append(acc)
-            if C.jacobian_to_affine(spec, out) != exp:
-                raise AssertionError("K7 bucket sums disagree with the host group law")
-        elif int(flags.sum()) == 0:
-            raise AssertionError("K2 raised no collision flag on P then P runs")
-    # the commitment shape: a batch of random scalar vectors over the points
-    scalars = ints_to_limbs([rng.randrange(VESTA.scalar.modulus) for _ in range(batch * n_points)], dev)
-    c, signed = M.auto_window(n_points)
-    tab, src_t, starts_t, _ = M.bucket_runs(
-        spec, table[:n_points].contiguous(), scalars.view(batch, n_points, 8), c, signed
-    )
-    live_rows = int(starts_t[-1])
-    nb = starts_t.shape[0] - 1
-    for name, complete in (("K2", False), ("K7", True)):
-        out, flags = M.bucket_sums(spec, tab, src_t, starts_t, complete)
-        want, want_flags = M.bucket_sums_plain(spec, tab, src_t, starts_t, complete)
-        errs[name] = max(errs[name], max_abs_err(out, want), max_abs_err(flags, want_flags))
-        ms = cuda_ms(lambda: M.bucket_sums(spec, tab, src_t, starts_t, complete), 20)
-        plain = cuda_ms(lambda: M.bucket_sums_plain(spec, tab, src_t, starts_t, complete), 1)
-        adds = live_rows - int((starts_t[1:] > starts_t[:-1]).sum())  # rows after each head
-        nbytes = live_rows * (64 + 4) + nb * (4 + 96 + 4)
-        bms, by = bound_ms(nbytes, adds * (11 if not complete else 12) * MONT_MUL_RESULTS)
-        shape = f"{batch} MSMs x {n_points} points, c = {c}: {nb} buckets, {live_rows} rows"
-        rows[name] = {
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "shape": shape
-        }
+    spec, p_mod = FQ_SPEC, VESTA.scalar.modulus
+    pts = _vesta_points(rng, 4097)
+    errs = {"K2": 0, "K7": 0}
+    per_shape = {"K2": [], "K7": []}
+
+    def runs_of(points: list, scalars: list, batch: int, c: int):
+        table = C.affine_table(spec, points, dev)
+        lim = ints_to_limbs(scalars, dev).view(batch, len(points), 8)
+        tab, src_t, starts_t, _, bid = M.bucket_runs(spec, table, lim, c, False)
+        return tab, src_t, starts_t, bid
+
+    def case(shape: str, name: str, tab, src_t, starts_t, bid, reps: int, host_points=None, host_buckets=()):
+        complete = name == "K7"
+        stats = _run_stats(starts_t)
+        chunk, chunks, resident = _k2_layout(dev, stats, complete)
+        out, flags = M.bucket_sums(spec, tab, src_t, starts_t, bid, complete)
+        (want, want_flags), plain = once_ms(
+            lambda: M.bucket_sums_plain(spec, tab, src_t, starts_t, complete, chunk=chunk))
+        err = max(max_abs_err(out, want), max_abs_err(flags, want_flags))
+        errs[name] = max(errs[name], err)
+        if complete and int(flags.sum()):
+            raise AssertionError(f"K7 raised a collision flag [{shape}]")
+        checked = 0
+        if host_points is not None:
+            checked = _check_host_law(spec, f"{name} [{shape}]", out, flags.cpu(), host_points, src_t.tolist(),
+                                      starts_t.tolist(), host_buckets)
+        ms = cuda_ms(lambda: M.bucket_sums(spec, tab, src_t, starts_t, bid, complete), reps)
+        adds = stats["rows"] - stats["live_buckets"]  # every row after its bucket's head
+        nbytes = stats["rows"] * (64 + 4 + 4) + stats["buckets"] * (4 + 96 + 4)
+        bms, by = bound_ms(nbytes, adds * (12 if complete else 11) * MONT_MUL_RESULTS)
+        lens = (starts_t[1:] - starts_t[:-1]).to(torch.int64)
+        first, last = starts_t[:-1].to(torch.int64), starts_t[1:].to(torch.int64) - 1
+        pieces = int(((last // chunk) - (first // chunk) + 1)[lens > 0].max()) if stats["rows"] else 0
+        row = {"shape": shape, **stats, "chunk": chunk, "chunks": chunks, "resident_threads": resident,
+               "max_pieces": pieces, "flags": int(flags.sum()), "host_checked": checked, "max_abs_err": err,
+               "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by}
+        per_shape[name].append(row)
+        log(f"  {name} {shape}: {stats['rows']} rows, {stats['buckets']} buckets ({stats['live_buckets']} live), "
+            f"mean run {stats['mean_run']:.2f}, longest {stats['longest_run']}, L = {chunk} over {chunks} of "
+            f"{resident} threads, a bucket in at most {pieces} chunks; max_abs_err {err}, {row['flags']} flags, "
+            f"{checked} host-checked; kernel {ms:.4f} ms, plain {plain:.1f} ms, bound {bms:.6f} ms ({by})")
+        return out, flags
+
+    # hand-made runs, laid out for chunks of HAND_CHUNK rows
+    hand_points = pts[:n_points] + [None] + [VESTA.neg(p) for p in pts[:64]]
+    hand_table = C.affine_table(spec, hand_points, dev)
+    for name in ("K2", "K7"):
+        resident = M.bucket_resident(dev, name == "K7")
+        src, starts, kinds = _hand_runs(rng, n_points, HAND_CHUNK, resident)
+        src_t = torch.tensor(src, dtype=torch.int32, device=dev)
+        starts_t = torch.tensor(starts, dtype=torch.int32, device=dev)
+        bid = torch.repeat_interleave(torch.arange(len(kinds), device=dev, dtype=torch.int32),
+                                      (starts_t[1:] - starts_t[:-1]).to(torch.int64))
+        special = [b for b, k in enumerate(kinds) if k in (1, 2, 3, 4, 5)]
+        sample = special[:: max(1, len(special) // 1500)] + rng.sample(range(len(kinds)), 500)
+        out, flags = case(f"hand-made runs (L = {HAND_CHUNK})", name, hand_table, src_t, starts_t, bid, 5,
+                          hand_points, sample)
+        flags = flags.cpu()
+        if name == "K2":
+            if not all(int(flags[b]) for b, k in enumerate(kinds) if k == 1):
+                raise AssertionError("K2 did not flag P then P inside a chunk")
+            if any(int(flags[b]) for b, k in enumerate(kinds) if k == 5):
+                raise AssertionError("K2 flagged P then P across a chunk boundary, which the complete merge adds")
+    # all-equal scalars: every window one bucket of n_points rows
+    s = rng.randrange(1, p_mod)
+    runs = runs_of(pts[:n_points], [s] * n_points, 1, 8)
+    for name in ("K2", "K7"):
+        case(f"all-equal scalars, 1 x {n_points} points, c = 8", name, *runs, 2, pts[:n_points],
+             torch.nonzero(runs[2].diff()).flatten().tolist())
+    # the board's commit batch (K2; K7 under BZ_ROW_MSM)
+    batch = BOARD_COMMIT_BATCH
+    scalars = [rng.randrange(p_mod) for _ in range(batch * 4097)]
+    commit = runs_of(pts, scalars, batch, 8)
+    sample = rng.sample(range(commit[2].shape[0] - 1), 256)
+    for name in ("K2", "K7"):
+        case(f"board commit batch, {batch} x 4097 points, c = 8", name, *commit, 20, pts, sample)
+    # an IPA round: two MSMs over the 4096 G points, each with half of its scalars zero
+    ipa = [rng.randrange(p_mod) if i < 2048 else 0 for i in range(4096)]
+    ipa += [0] * 2048 + [rng.randrange(p_mod) for _ in range(2048)]
+    ipa_runs = runs_of(pts[:4096], ipa, 2, 8)
+    case("IPA round, 2 x 4096 points (half zero), c = 8", "K2", *ipa_runs, 20, pts[:4096],
+         rng.sample(range(ipa_runs[2].shape[0] - 1), 256))
+    # the IPA's 3-point MSM [base, u, w] x [1, v z, r] (complete, c = 2)
+    three = runs_of(pts[:3], [1, rng.randrange(p_mod), rng.randrange(p_mod)], 1, 2)
+    case("IPA 3-point MSM, 1 x 3 points, c = 2", "K7", *three, 50, pts[:3], range(three[2].shape[0] - 1))
+    rows = {}
+    for name in ("K2", "K7"):
+        head = next(r for r in per_shape[name] if r["shape"].startswith("board commit"))
+        rows[name] = {"max_abs_err": errs[name], "ms": head["ms"], "plain_ms": head["plain_ms"],
+                      "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                      "shape": f"{head['shape']} (per_shape: every shape)", "per_shape": per_shape[name]}
     return rows["K2"], rows["K7"]
 
 
@@ -885,12 +1034,14 @@ def main() -> int:
     lib = cuda.build()
     cuda.library()
     log(f"phase build: {time.time() - t:.3f} s ({lib})")
-    entry = None
+    entry = frame = None
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
-            entry = line.split("'")[1]
+            entry, frame = line.split("'")[1], None
+        elif "stack frame" in line:
+            frame = line.strip()
         elif "Used" in line and "registers" in line and entry:
-            log(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}")
+            log(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}; {frame}")
 
     global OPS_PER_S, MONT_MUL_RESULTS
     OPS_PER_S, sms, clock = card_int_rate()
@@ -908,7 +1059,7 @@ def main() -> int:
     # a board commit batch's window sums (c = 8: 32 windows of 256 buckets, one
     # column and 11 columns), an IPA round's (c = 2), signed c = 10 (26 windows x 4)
     rows["K3"] = check_k3_windows(dev, rng, [(352, 256), (32, 256), (2, 4), (104, 513)])
-    rows["K2"], rows["K7"] = check_k2_k7(dev, rng, 2049, 11)
+    rows["K2"], rows["K7"] = check_k2_k7(dev, rng)
     rows["K6"] = check_k6(dev, rng, 4096)
     log(f"phase kernels vs plain: {time.time() - t:.3f} s")
     report_rows({**rows, "K1 elementwise field_op": lane_wise["K1"], "K3 lane-wise point_add": lane_wise["K3"]})

@@ -3,7 +3,9 @@
 without JAX: ``MulCircuit`` is tests/test_prover.py::MulCircuit and
 ``LookupCircuit`` tests/test_prover.py::LookupCircuit on the port's plonk
 layer; ``bucket_rows`` makes rows of MSM bucket sums with the identity,
-equal and opposite buckets forced in. The tests here check the inputs'
+equal and opposite buckets forced in; ``hand_bucket_runs`` makes sorted
+bucket runs laid out on chunk boundaries and ``host_bucket_walk`` their
+sums and collision flags by the host group law. The tests here check the inputs'
 shape: the pins of the circuits' quotient programs, and the buckets' value.
 """
 
@@ -136,6 +138,79 @@ def host_window_sum(row: list):
         run = VESTA.add(run, p)
         acc = VESTA.add(acc, run)
     return acc
+
+
+def hand_bucket_runs(n_points: int, chunk: int, chunks: int, seed: int, device):
+    """Hand-made sorted bucket runs for K2 / K7 over a Vesta table of
+    n_points random points, the identity (row n_points) and the negations
+    of the first 8 (rows n_points + 1 + j), filling exactly chunk x chunks
+    rows, so that a pass with chunk length ``chunk`` cuts them into
+    ``chunks`` chunks. By bucket index mod 8: 0 empty, 1 P then P from a
+    chunk's first row (inside a chunk when chunk >= 2), 2 P then -P, 3 an
+    identity inside the run, 4 an identity at the head, 5 P then P
+    straddling a chunk boundary, 6 a run over about three chunks, 7
+    random. -> (table, src, starts, bid, the point of each table row, the
+    kind of each bucket)."""
+    rng = random.Random(seed)
+    pts = [VESTA.mul(VESTA.generator, rng.randrange(1, VESTA.scalar.modulus)) for _ in range(n_points)]
+    points = pts + [None] + [VESTA.neg(p) for p in pts[:8]]
+    ident, negs, total = n_points, n_points + 1, chunk * chunks
+    src, starts, kinds = [], [0], []
+
+    def close(run, kind):
+        src.extend(run)
+        starts.append(len(src))
+        kinds.append(kind)
+
+    while len(src) < total:
+        kind = len(kinds) % 8
+        run = [rng.randrange(n_points) for _ in range(rng.randrange(1, 5))]
+        if kind == 0:
+            run = []
+        elif kind in (1, 5):
+            align = 0 if kind == 1 else chunk - 1
+            if len(src) % chunk != align:
+                close([rng.randrange(n_points) for _ in range((align - len(src)) % chunk)], 7)
+            p = rng.randrange(n_points)
+            run = [p, p] + [i for i in run if i != p]
+        elif kind == 2:
+            j = rng.randrange(8)
+            run[0:0] = [j, negs + j]
+        elif kind == 3:
+            run.insert(rng.randrange(1, len(run) + 1), ident)
+        elif kind == 4:
+            run = [ident] + run
+        elif kind == 6:
+            run = [rng.randrange(n_points) for _ in range(3 * chunk + 2)]
+        close(run, kind)
+    if len(src) > total:  # the last run, cut to fill exactly chunk x chunks rows
+        del src[total:]
+        starts[-1], kinds[-1] = total, 7
+    table = C.affine_table(FQ_SPEC, points, device)
+    lens = torch.tensor(starts).diff()
+    bid = torch.repeat_interleave(torch.arange(len(kinds), dtype=torch.int32), lens).to(device)
+    as_tensor = lambda v: torch.tensor(v, dtype=torch.int32, device=device)  # noqa: E731
+    return table, as_tensor(src), as_tensor(starts), bid, points, kinds
+
+
+def host_bucket_walk(curve, points: list, src: list, starts: list, chunk: int, complete: bool):
+    """Bucket sums by the host group law and the flags of a pass with chunk
+    length ``chunk``: a bucket is flagged (incomplete law only) iff inside
+    one chunk its running sum met the next point, P == Q, which the
+    incomplete mixed addition leaves to the complete redo. -> (sums, flags)."""
+    sums, flags = [], []
+    for b in range(len(starts) - 1):
+        acc, seg, flag = None, None, False
+        for i in range(starts[b], starts[b + 1]):
+            q = points[src[i]]
+            same_chunk = i > starts[b] and (i - 1) // chunk == i // chunk
+            if same_chunk and seg is not None and seg == q:
+                flag = True
+            seg = curve.add(seg, q) if same_chunk else q
+            acc = curve.add(acc, q)
+        sums.append(acc)
+        flags.append(int(flag and not complete))
+    return sums, flags
 
 
 def in_place_program(device):

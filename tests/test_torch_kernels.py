@@ -16,7 +16,9 @@ from battlezips_halo2_tpu_torch.ops import gate_eval as G
 from battlezips_halo2_tpu_torch.ops import msm as M
 from battlezips_halo2_tpu_torch.ops import ntt as D
 from battlezips_halo2_tpu_torch.plonk.arguments import ProofSchedule
-from test_torch_inputs import bucket_rows, host_window_sum, in_place_program, port_vk
+from test_torch_inputs import (
+    bucket_rows, hand_bucket_runs, host_bucket_walk, host_window_sum, in_place_program, port_vk,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -67,6 +69,12 @@ def test_k3_point_add(cuda):
 
 @pytest.mark.parametrize("complete", [False, True], ids=["K2", "K7"])
 def test_k2_k7_bucket_sums(cuda, complete):
+    """The bucket pass against its plain version at the kernel's chunk
+    length, in Jacobian coordinates and flags: a few short runs (L = 1)
+    and hand-made runs laid out for L = 3 over one wave of threads (P then
+    P inside a chunk and across a boundary, identity rows, a run over
+    several chunks), whose affine sums equal the host group law wherever
+    the flag is 0."""
     rng = random.Random(7)
     spec = L.FQ_SPEC
     pts = [VESTA.mul(VESTA.generator, rng.randrange(1, 1 << 64)) for _ in range(16)]
@@ -74,10 +82,25 @@ def test_k2_k7_bucket_sums(cuda, complete):
     runs = [[0, 0, 3], [0, 17, 2], [16, 5], [], [1, 16, 1], [4, 5, 6, 7]]
     src = torch.tensor(sum(runs, []), dtype=torch.int32, device=cuda)
     starts = torch.tensor([0] + [sum(map(len, runs[: i + 1])) for i in range(len(runs))], dtype=torch.int32, device=cuda)
-    got = M.bucket_sums(spec, table, src, starts, complete)
-    want = M.bucket_sums_plain(spec, table, src, starts, complete)
+    bid = torch.repeat_interleave(torch.arange(len(runs), dtype=torch.int32, device=cuda), starts.diff())
+    resident = M.bucket_resident(cuda, complete)
+    assert M.bucket_layout(int(starts[-1]), resident, int(starts.diff().max()))[0] == 1
+    got = M.bucket_sums(spec, table, src, starts, bid, complete)
+    want = M.bucket_sums_plain(spec, table, src, starts, complete, chunk=1)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert bool(got[1][0]) == (not complete)
+    assert not got[1].any()  # P then P at a run's head meets the complete merge when every row is a chunk
+
+    table, src, starts, bid, points, kinds = hand_bucket_runs(40, 3, resident, 11, cuda)
+    assert M.bucket_layout(int(starts[-1]), resident, int(starts.diff().max())) == (3, resident)
+    got = M.bucket_sums(spec, table, src, starts, bid, complete)
+    want = M.bucket_sums_plain(spec, table, src, starts, complete, chunk=3)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    sums, flags = host_bucket_walk(VESTA, points, src.tolist(), starts.tolist(), 3, complete)
+    assert got[1].tolist() == flags
+    check = [b for b in range(0, len(kinds), 7) if not flags[b]]
+    idx = torch.tensor(check, device=cuda)
+    assert C.jacobian_to_affine(spec, got[0].index_select(0, idx)) == [sums[b] for b in check]
+    assert complete or any(flags)
 
 
 @pytest.mark.parametrize(
