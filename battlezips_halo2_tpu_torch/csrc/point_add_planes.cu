@@ -1,33 +1,36 @@
-// K6: complete Jacobian point addition over lanes, out = p + q, with the
-// points held as coordinate planes: a batch of n points is (3, n, 8), the
-// X, Y and Z planes each contiguous (n rows of 8 x 32-bit limbs).
+// K6: Jacobian point arithmetic with the points held as coordinate planes:
+// a batch of n points is (3, n, 8), the X, Y and Z planes each contiguous
+// (n rows of 8 x 32-bit limbs).
 //
 // Replaces battlezips_halo2_tpu/ops/pallas_kernels.py:167 point_add_rows
 // (_point_add_call), which took X, Y, Z as six separate (rows, 16) inputs
-// and gave three outputs; the MSM's window aggregation under BZ_ROW_MSM
-// (ops/msm.py) keeps its points in planes throughout. One thread per lane
-// loads each coordinate from its own plane and runs the same jac_add as K3,
-// so outputs equal K3's coordinate for coordinate.
-// Bound on the H100: operations at the MSM's widths; at the aggregation's
-// narrow widths it is bound by launch latency instead.
-#include "field.cuh"
-
-__device__ __forceinline__ Jac jac_load_planes(const uint32_t* src, long long i, long long n) {
-  Jac r;
-  r.x = fe_load(src + i * BZ_NL);
-  r.y = fe_load(src + (n + i) * BZ_NL);
-  r.z = fe_load(src + (2 * n + i) * BZ_NL);
-  return r;
-}
+// and gave three outputs, and which the reference's MSM under BZ_ROW_MSM
+// launched once per addition of its window aggregation. Two entries:
+//
+// - bz_window_sums_planes, what the MSM runs: the window aggregation of a
+//   whole bucket pass in one launch, buckets (3, rows, nbuck, 8) ->
+//   (3, rows, 8), T = sum_{b=1..m} b S_b for every row. Its body is K3's
+//   (csrc/window_body.cuh), addressing a point's coordinates in their
+//   planes; its design and bound are described there;
+// - bz_point_add_planes, the complete addition out = p + q over lanes, one
+//   thread a lane: the reference's kernel as it was, which the plain
+//   version's running sums call one addition at a time (the old route).
+//   Its outputs equal the lane-wise K3's coordinate for coordinate; at the
+//   aggregation's narrow widths launch latency bounds it.
+//
+// Both kernels call one out-of-line Montgomery product (BZ_FE_MUL_CALL,
+// csrc/field.cuh): the window kernel holds 121 registers instead of 188,
+// and took 6.4 ms of a row-configuration board proof's device time
+// instead of 14.7 with the product inlined (PERF.md §6).
+#define BZ_FE_MUL_CALL
+#include "window_body.cuh"
 
 __global__ void point_add_planes_kernel(FieldConsts F, const uint32_t* p, const uint32_t* q,
                                         uint32_t* out, long long n) {  // out may alias p or q
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Jac r = jac_add(F, jac_load_planes(p, i, n), jac_load_planes(q, i, n));
-  fe_store(out + i * BZ_NL, r.x);
-  fe_store(out + (n + i) * BZ_NL, r.y);
-  fe_store(out + (2 * n + i) * BZ_NL, r.z);
+  const Jac r = jac_add(F, jac_load_at<true>(p, i, n), jac_load_at<true>(q, i, n));
+  jac_store_at<true>(out, i, n, r);
 }
 
 extern "C" int bz_point_add_planes(const uint32_t* consts, const void* p, const void* q, void* out,
@@ -38,4 +41,25 @@ extern "C" int bz_point_add_planes(const uint32_t* consts, const void* p, const 
       F, static_cast<const uint32_t*>(p), static_cast<const uint32_t*>(q),
       static_cast<uint32_t*>(out), n);
   return (int)cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(BZ_WS_BLOCK)
+    window_sums_planes_kernel(FieldConsts F, const uint32_t* __restrict__ buckets, uint32_t* __restrict__ out,
+                              long long rows, int nbuck, int log_threads, int seg) {
+  __shared__ uint32_t buf[3 * BZ_NL * BZ_WS_BLOCK];
+  window_sums_body<true>(F, buckets, out, rows, nbuck, log_threads, seg, buf);
+}
+
+extern "C" int bz_window_sums_planes(const uint32_t* consts, const void* buckets, void* out, long long rows,
+                                     int nbuck, int log_threads, int seg, void* stream) {
+  if (!window_args_ok(nbuck, log_threads, seg)) return (int)cudaErrorInvalidValue;
+  const FieldConsts F = field_consts(consts);
+  window_sums_planes_kernel<<<window_grid(rows, log_threads), BZ_WS_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      F, static_cast<const uint32_t*>(buckets), static_cast<uint32_t*>(out), rows, nbuck, log_threads, seg);
+  return (int)cudaGetLastError();
+}
+
+// Threads of window_sums_planes_kernel the current card holds at once.
+extern "C" int bz_window_planes_resident(long long* threads) {
+  return window_resident_threads(window_sums_planes_kernel, threads);
 }

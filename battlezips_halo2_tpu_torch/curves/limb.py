@@ -8,10 +8,12 @@ identity ((0, 0) is never on y^2 = x^3 + 5).
 
 Kernel K3's lane-wise form (``csrc/point_add.cu``) is the complete
 addition :func:`point_add` (the MSM's window aggregation, K3 proper, is
-``ops/msm.py::window_sums``). Kernel K6 (``csrc/point_add_planes.cu``),
-:func:`point_add_planes`, is the same addition on points held as coordinate
-planes, ``(3, ..., 8)`` with X, Y and Z each contiguous, as the reference's
-``JacobianPoint`` rows are. Kernel K8 (``csrc/step_chain.cu``),
+``ops/msm.py::window_sums``). Kernel K6's lane-wise form
+(``csrc/point_add_planes.cu``), :func:`point_add_planes`, is the same
+addition on points held as coordinate planes, ``(3, ..., 8)`` with X, Y
+and Z each contiguous, as the reference's ``JacobianPoint`` rows are (the
+MSM's planar window aggregation, K6 proper, is
+``ops/msm.py::window_sums_planes``). Kernel K8 (``csrc/step_chain.cu``),
 :func:`step_chain`, chains the bucket step of K2 over fixed points:
 ``acc = head ? lift(P) : acc + P`` by the incomplete law. The functions
 named ``*_plain`` are the plain PyTorch versions of the formulas: they run
@@ -217,23 +219,25 @@ def point_add(spec: FieldSpec, p: torch.Tensor, q: torch.Tensor, out=None) -> to
 # ------------------------------------------------------------------- K6
 
 
-def point_add_planes_plain(spec: FieldSpec, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of K6: :func:`point_add_plain` on (3, ..., 8)
-    coordinate planes."""
-    return point_add_plain(spec, p.movedim(0, -2), q.movedim(0, -2)).movedim(-2, 0)
+def point_add_planes_plain(spec: FieldSpec, p: torch.Tensor, q: torch.Tensor, out=None) -> torch.Tensor:
+    """The plain PyTorch version of K6's lane-wise kernel:
+    :func:`point_add_plain` on (3, ..., 8) coordinate planes; written into
+    ``out`` if one is given."""
+    pq = point_add_plain(spec, p.movedim(0, -2), q.movedim(0, -2)).movedim(-2, 0)
+    return pq if out is None else out.copy_(pq)
 
 
 def point_add_planes(spec: FieldSpec, p: torch.Tensor, q: torch.Tensor, out=None) -> torch.Tensor:
-    """K6: complete Jacobian addition over lanes of coordinate planes,
-    (3, ..., 8) each; ``out`` may be ``p`` or ``q``. A CUDA tensor launches
-    the kernel; a CPU tensor runs :func:`point_add_planes_plain`."""
+    """K6's lane-wise kernel: complete Jacobian addition over lanes of
+    coordinate planes, (3, ..., 8) each; ``out`` may be ``p`` or ``q``. A
+    CUDA tensor launches the kernel; a CPU tensor runs
+    :func:`point_add_planes_plain`."""
     if p.shape != q.shape or p.shape[0] != 3 or p.shape[-1] != L.NLIMBS:
         raise ValueError(f"point planes must match as (3, ..., 8): {tuple(p.shape)}, {tuple(q.shape)}")
     if out is None:
         out = torch.empty_like(p)
     if not p.is_cuda:
-        out.copy_(point_add_planes_plain(spec, p, q))
-        return out
+        return point_add_planes_plain(spec, p, q, out=out)
     from ..ops import cuda
 
     for t in (p, q, out):

@@ -69,8 +69,12 @@ _SIGNATURES = {
     "bz_op_chain": (_INT, _P, _P, _P, _P, _I64, _INT, _P),
     # consts, buckets, out, rows, nbuck, log2 threads per row, segment, stream
     "bz_window_sums": (_P, _P, _P, _I64, _INT, _INT, _INT, _P),
-    # resident threads of the window kernel on the current card (out)
+    # resident threads of K3's window kernel on the current card (out)
     "bz_window_resident": (ctypes.POINTER(_I64),),
+    # consts, bucket planes, out planes, rows, nbuck, log2 threads per row, segment, stream
+    "bz_window_sums_planes": (_P, _P, _P, _I64, _INT, _INT, _INT, _P),
+    # resident threads of K6's window kernel on the current card (out)
+    "bz_window_planes_resident": (ctypes.POINTER(_I64),),
     # consts, prog, n_instr, desc, n_pins, 4 sources, t_inv, out, log2 ext, lanes, n_temps, stream
     "bz_quotient_vm": (_P, _P, _INT, _P, _INT, _P, _P, _P, _P, _P, _P, _INT, _I64, _INT, _P),
 }

@@ -40,9 +40,10 @@ one launch, and the repair is phase B of the same C call.
 
 Under ``BZ_ROW_MSM`` the MSM takes the route of the reference's row-layout
 kernels: every bucket run goes through the complete law (K7), with no
-collision flag and no redo, and step 4 runs the two-level running sums
-one addition per launch of kernel K6, with the points held as coordinate
-planes (3, ..., 8) from the bucket sums to the window sums.
+collision flag and no redo, and step 4 runs on kernel K6 with the points
+held as coordinate planes (3, ..., 8): one launch of its window kernel
+(``csrc/point_add_planes.cu``, K3's body addressing planes) per bucket
+pass (:func:`window_sums_planes`).
 """
 
 from __future__ import annotations
@@ -287,20 +288,21 @@ def _aggregate_windows(
     b = k g + i (i in [1, g], k < G): T = sum_k (k g U_k + A_k) with
     U_k = sum_i S_{kg+i}, A_k = sum_i i S_{kg+i}. Level 1 runs g steps at
     width R G, level 2 G steps at width R: ~2 (g + G) additions deep.
-    The additions are lane-wise calls of ``add`` (default
-    ``curves/limb.py::point_add``), or with ``planar`` of
-    ``point_add_planes`` (K6) over coordinate planes (3, R, ..., 8),
-    converted once here and once at the end."""
-    r_count, dev = buckets.shape[0], buckets.device
+    With ``planar`` the points are coordinate planes: (3, R, nbuck, 8) ->
+    (3, R, 8). The additions are lane-wise calls of ``add``, by default
+    ``curves/limb.py::point_add`` (K3's lane-wise kernel), or with
+    ``planar`` ``point_add_planes`` (K6's)."""
+    dev = buckets.device
+    if planar:
+        r_count, inf, axis = buckets.shape[1], C.infinity_planes, 2
+        add = add or C.point_add_planes
+    else:
+        r_count, inf, axis = buckets.shape[0], C.infinity, 1
+        add = add or C.point_add
     m = nbuck - 1
     gbits = max(1, ((m - 1).bit_length() + 1) // 2)
     g = 1 << gbits
     big_g = (m + g - 1) // g
-    if planar:
-        add, inf, axis = C.point_add_planes, C.infinity_planes, 2
-        buckets = buckets.permute(2, 0, 1, 3).contiguous()
-    else:
-        add, inf, axis = add or C.point_add, C.infinity, 1
 
     def column(t: torch.Tensor, k: int) -> torch.Tensor:
         return t.select(axis, k).contiguous()
@@ -326,7 +328,7 @@ def _aggregate_windows(
         for _ in range(gbits):
             add(spec, acc2, acc2.clone(), out=acc2)
         total = add(spec, acc2, total)
-    return total.movedim(0, -2).contiguous() if planar else total
+    return total
 
 
 def window_sums_plain(spec: FieldSpec, buckets: torch.Tensor, nbuck: int) -> torch.Tensor:
@@ -336,31 +338,40 @@ def window_sums_plain(spec: FieldSpec, buckets: torch.Tensor, nbuck: int) -> tor
     return _aggregate_windows(spec, buckets, nbuck, add=C.point_add_plain)
 
 
-WINDOW_BLOCK = 128  # threads of a block of csrc/window_sums.cu
+def window_sums_planes_plain(spec: FieldSpec, planes: torch.Tensor, nbuck: int) -> torch.Tensor:
+    """The plain PyTorch version of K6's window kernel, on any device: the
+    reference's two-level running sums (:func:`_aggregate_windows`) over
+    ``curves/limb.py::point_add_planes_plain``."""
+    return _aggregate_windows(spec, planes, nbuck, planar=True, add=C.point_add_planes_plain)
+
+
+WINDOW_BLOCK = 128  # threads of a block of csrc/window_body.cuh
 _window_resident: dict = {}
 
 
-def window_resident(device: torch.device) -> int:
-    """Threads of K3's window kernel that the card holds at once: its SMs x
-    the blocks an SM keeps resident, from the CUDA occupancy calculator on
-    the built kernel (so a change of its registers changes the split);
-    asked once per card."""
+def window_resident(device: torch.device, planar: bool = False) -> int:
+    """Threads of K3's window kernel (K6's with ``planar``) that the card
+    holds at once: its SMs x the blocks an SM keeps resident, from the CUDA
+    occupancy calculator on the built kernel (so a change of its registers
+    changes the split); asked once per card and kernel."""
     from . import cuda
 
-    if device not in _window_resident:
+    key = (device, bool(planar))
+    if key not in _window_resident:
+        name, entry = ("K6", "bz_window_planes_resident") if planar else ("K3", "bz_window_resident")
         n = ctypes.c_longlong()
         with torch.cuda.device(device):
-            cuda.check(cuda.library().bz_window_resident(ctypes.byref(n)), "K3 bz_window_resident")
+            cuda.check(getattr(cuda.library(), entry)(ctypes.byref(n)), f"{name} {entry}")
         if n.value < WINDOW_BLOCK:
-            raise RuntimeError(f"K3's window kernel fits no block on {device}: {n.value} resident threads")
-        _window_resident[device] = n.value
-    return _window_resident[device]
+            raise RuntimeError(f"{name}'s window kernel fits no block on {device}: {n.value} resident threads")
+        _window_resident[key] = n.value
+    return _window_resident[key]
 
 
 def window_layout(rows: int, m: int, resident: int) -> tuple[int, int]:
-    """(threads per row, buckets per thread) of K3 for ``rows`` rows of m
-    buckets: both powers of two, threads x segment >= m. A row takes up to
-    a block, which keeps the serial depth lowest; when the rows would not
+    """(threads per row, buckets per thread) of K3 or K6 for ``rows`` rows
+    of m buckets: both powers of two, threads x segment >= m. A row takes up
+    to a block, which keeps the serial depth lowest; when the rows would not
     all be resident at once (``resident`` threads, :func:`window_resident`),
     each takes fewer threads (down to 32): a second wave of blocks would
     cost more than the longer segments."""
@@ -382,15 +393,36 @@ def window_sums(spec: FieldSpec, buckets: torch.Tensor, nbuck: int) -> torch.Ten
         raise ValueError(f"buckets must be (rows, {nbuck}, 3, 8) with nbuck >= 2: {tuple(buckets.shape)}")
     if not buckets.is_cuda:
         return window_sums_plain(spec, buckets, nbuck)
+    out = torch.empty(buckets.shape[0], 3, L.NLIMBS, dtype=torch.int32, device=buckets.device)
+    return _launch_windows(spec, buckets, out, buckets.shape[0], nbuck, planar=False)
+
+
+def window_sums_planes(spec: FieldSpec, planes: torch.Tensor, nbuck: int) -> torch.Tensor:
+    """K6: :func:`window_sums` on coordinate planes, (3, R, nbuck, 8) ->
+    (3, R, 8), for every row in one launch. A CUDA tensor launches the
+    kernel; a CPU tensor runs the plain version,
+    :func:`window_sums_planes_plain`. Their points are equal, their
+    Jacobian coordinates differ."""
+    if planes.dim() != 4 or planes.shape[0] != 3 or planes.shape[2:] != (nbuck, L.NLIMBS) or nbuck < 2:
+        raise ValueError(f"planes must be (3, rows, {nbuck}, 8) with nbuck >= 2: {tuple(planes.shape)}")
+    if not planes.is_cuda:
+        return window_sums_planes_plain(spec, planes, nbuck)
+    out = torch.empty(3, planes.shape[1], L.NLIMBS, dtype=torch.int32, device=planes.device)
+    return _launch_windows(spec, planes, out, planes.shape[1], nbuck, planar=True)
+
+
+def _launch_windows(spec: FieldSpec, src: torch.Tensor, out: torch.Tensor, rows: int, nbuck: int, planar: bool):
+    """One launch of K3's window kernel (K6's with ``planar``) from src into
+    out, rows split by :func:`window_layout` over the kernel's resident
+    threads."""
     from . import cuda
 
-    cuda.require(buckets, torch.int32, "K3 buckets")
-    rows = buckets.shape[0]
-    out = torch.empty(rows, 3, L.NLIMBS, dtype=torch.int32, device=buckets.device)
+    name, entry = ("K6", "bz_window_sums_planes") if planar else ("K3", "bz_window_sums")
+    cuda.require(src, torch.int32, f"{name} buckets")
     if rows:
-        threads, seg = window_layout(rows, nbuck - 1, window_resident(buckets.device))
+        threads, seg = window_layout(rows, nbuck - 1, window_resident(src.device, planar))
         cuda.launch(
-            "K3", "bz_window_sums", buckets, spec.kernel_consts, cuda.ptr(buckets), cuda.ptr(out), rows, nbuck,
+            name, entry, src, spec.kernel_consts, cuda.ptr(src), cuda.ptr(out), rows, nbuck,
             threads.bit_length() - 1, seg,
         )
     return out
@@ -434,8 +466,9 @@ def bucket_runs(spec: FieldSpec, table, scalars, c: int, signed: bool):
 def msm_wsums(spec: FieldSpec, table, scalars, c: int, signed: bool, complete: bool = False):
     """Window sums of B MSMs over one point table -> (wsums (B, W, 3, 8)
     Jacobian, collision: True iff the incomplete law met P == Q in a live
-    bucket). Under BZ_ROW_MSM the buckets always take the complete law and
-    the aggregation runs on K6, so collision is False."""
+    bucket). Under BZ_ROW_MSM the buckets always take the complete law, so
+    collision is False, and the aggregation runs on K6's window kernel over
+    coordinate planes."""
     b_count = scalars.shape[0]
     row = config().row_msm
     complete = complete or row
@@ -443,8 +476,11 @@ def msm_wsums(spec: FieldSpec, table, scalars, c: int, signed: bool, complete: b
     sums, flags = bucket_sums(spec, table, src, starts, bid, complete)
     collision = not complete and bool(flags.any())
     buckets = sums.view(-1, nbuck, 3, L.NLIMBS)
-    wsums = _aggregate_windows(spec, buckets, nbuck, planar=True) if row else window_sums(spec, buckets, nbuck)
-    return wsums.view(b_count, -1, 3, L.NLIMBS), collision
+    if row:
+        wsums = window_sums_planes(spec, buckets.permute(2, 0, 1, 3).contiguous(), nbuck).movedim(0, -2)
+    else:
+        wsums = window_sums(spec, buckets, nbuck)
+    return wsums.reshape(b_count, -1, 3, L.NLIMBS), collision
 
 
 def host_window_fold(curve: Curve, wsum_points: list, c: int):

@@ -19,11 +19,12 @@ from the root of a checkout. In order, it
    affine points against the host group law: hand-made runs (P then P
    inside a chunk and across a chunk boundary), all-equal scalars, the
    board's commit batch, an IPA round and the IPA's 3-point MSM. K3's
-   window kernel is held, on affine points, against its plain version at
-   the proof path's shapes (a board commitment's 32 and 352 rows of 256
-   buckets, an IPA round's 2 rows of 4, signed c = 10's 104 rows of 513),
-   and timed beside the old route (the two-level running sums, one
-   lane-wise K3 launch per addition);
+   window kernel and K6's (the same body on coordinate planes) are held,
+   on affine points, against their plain versions at the proof path's
+   shapes (a board commitment's 32 and 352 rows of 256 buckets, an IPA
+   round's 2 rows of 4, signed c = 10's 104 rows of 513), and timed beside
+   the old route (the two-level running sums, one lane-wise K3, or K6,
+   launch per addition);
 3. drives the port's proof path through its public API, reading the
    kernels' launch counts around every phase:
 
@@ -46,7 +47,8 @@ from the root of a checkout. In order, it
 
    K1-K7 must each have launched on this path. In the default
    configuration every phase must launch K3 exactly as often as K2 and K7
-   together (one window aggregation per bucket pass), and a steady proof
+   together (one window aggregation per bucket pass), in the row
+   configuration K6 exactly as often as K7, and a steady proof
    at most 24 K1 (the quotient program in one launch); the steady proofs
    also print their spans (``BZ_TORCH_TRACE=1``);
 4. holds K5 bit-exact against its plain version at the board's own
@@ -111,8 +113,8 @@ KERNELS = {
            "csrc/window_sums.cu", f"{PALLAS_KERNELS}:414"),
     "K4": ("ntt_stage (radix-2 DIT butterfly)", "csrc/ntt_stage.cu", f"{PALLAS_KERNELS}:454"),
     "K5": ("butterfly_rows (out-of-place butterfly, row layout)", "csrc/butterfly_rows.cu", f"{PALLAS_KERNELS}:121"),
-    "K6": ("point_add_planes (complete Jacobian, coordinate planes)", "csrc/point_add_planes.cu",
-           f"{PALLAS_KERNELS}:167"),
+    "K6": ("window_sums_planes (window aggregation in one launch, coordinate planes; lane-wise point_add_planes "
+           "beside it)", "csrc/point_add_planes.cu", f"{PALLAS_KERNELS}:167"),
     "K7": ("msm_buckets complete variant", "csrc/msm_buckets.cu", f"{PALLAS_KERNELS}:227"),
     "K8": ("step_chain (chained incomplete bucket step)", "csrc/step_chain.cu", f"{EXP_STEP_T}:110"),
     "K9": ("op_chain (chained field ops)", "csrc/op_chain.cu", f"{EXP_STEP_T}:210"),
@@ -353,34 +355,50 @@ def _affine_err(spec, got, want) -> int:
     return max((abs(x - y) for a, b in pairs for x, y in zip(a or (0, 0), b or (0, 0))), default=0)
 
 
-def check_k3_windows(dev, rng: random.Random, shapes) -> dict:
-    """K3's window kernel against window_sums_plain on affine points (the
-    two add in different orders), at every (rows, nbuck) of ``shapes``;
-    times the kernel, its plain version and the old route (the two-level
-    running sums over the lane-wise K3, one launch per addition) at each.
-    The first shape is the row's."""
-    from battlezips_halo2_tpu_torch.curves import limb as C
+def _check_windows(dev, rng: random.Random, shapes, planar: bool) -> dict:
+    """K3's window kernel (K6's with ``planar``, on coordinate planes)
+    against its plain version on affine points (the two add in different
+    orders), at every (rows, nbuck) of ``shapes``; times the kernel, its
+    plain version and the old route (the two-level running sums over the
+    lane-wise K3, or K6, one launch per addition) at each. The first shape
+    is the row's."""
     from battlezips_halo2_tpu_torch.fields.limb import FQ_SPEC
     from battlezips_halo2_tpu_torch.ops import msm as M
 
     spec, err, per_shape = FQ_SPEC, 0, []
+    if planar:
+        kernel, plain_fn = M.window_sums_planes, M.window_sums_planes_plain
+    else:
+        kernel, plain_fn = M.window_sums, M.window_sums_plain
     for rows, nbuck in shapes:
         buckets = _bucket_rows(dev, rng, rows, nbuck)
-        got = M.window_sums(spec, buckets, nbuck)
-        want, plain = once_ms(lambda: M.window_sums_plain(spec, buckets, nbuck))
+        src = buckets.permute(2, 0, 1, 3).contiguous() if planar else buckets
+        got = kernel(spec, src, nbuck)
+        want, plain = once_ms(lambda: plain_fn(spec, src, nbuck))
+        if planar:
+            got, want = got.movedim(0, -2), want.movedim(0, -2)
         err = max(err, _affine_err(spec, got, want))
-        ms = cuda_ms(lambda: M.window_sums(spec, buckets, nbuck), 20)
-        old = cuda_ms(lambda: M._aggregate_windows(spec, buckets, nbuck), 5)
+        ms = cuda_ms(lambda: kernel(spec, src, nbuck), 20)
+        old = cuda_ms(lambda: M._aggregate_windows(spec, src, nbuck, planar=planar), 5)
         m = nbuck - 1
         bms, by = bound_ms(rows * (nbuck + 1) * 96, rows * 2 * m * 16 * MONT_MUL_RESULTS)
-        threads, seg = M.window_layout(rows, m, M.window_resident(buckets.device))
+        threads, seg = M.window_layout(rows, m, M.window_resident(buckets.device, planar))
         per_shape.append({"rows": rows, "nbuck": nbuck, "threads_per_row": threads, "segment": seg, "ms": ms,
                           "old_route_ms": old, "plain_ms": plain, "bound_ms": bms, "bound_by": by})
     first = per_shape[0]
     return {"max_abs_err": err, "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "old_route_ms": first["old_route_ms"], "per_shape": per_shape,
-            "shape": f"{first['rows']} rows x {first['nbuck']} buckets, Vesta (per_shape: every shape)",
-            "resident_threads": M.window_resident(buckets.device)}
+            "shape": f"{first['rows']} rows x {first['nbuck']} buckets, Vesta{' planes' if planar else ''} "
+                     "(per_shape: every shape)",
+            "resident_threads": M.window_resident(buckets.device, planar)}
+
+
+def check_k3_windows(dev, rng: random.Random, shapes) -> dict:
+    return _check_windows(dev, rng, shapes, planar=False)
+
+
+def check_k6_windows(dev, rng: random.Random, shapes) -> dict:
+    return _check_windows(dev, rng, shapes, planar=True)
 
 
 def _vm_case(dev, rng: random.Random, vk, nb: int) -> dict:
@@ -435,9 +453,10 @@ def check_k1_vm(dev, rng: random.Random, board_vk, shot_vk) -> dict:
 
 
 def check_k6(dev, rng: random.Random, lanes: int) -> dict:
-    """K6 against its plain version and against K3 (coordinate for
-    coordinate) on the cases of check_k3, held as coordinate planes, also
-    with the output in place of an input; times it at check_k3's shape."""
+    """K6's lane-wise kernel against its plain version and against K3's
+    (coordinate for coordinate) on the cases of check_k3, held as
+    coordinate planes, also with the output in place of an input; times it
+    at check_k3's shape."""
     import torch
 
     from battlezips_halo2_tpu_torch.curves import limb as C
@@ -738,7 +757,10 @@ class Phases:
         self.seconds[name] = time.time() - t
         delta = self.launches[name] = {k: cuda.launches[k] - before[k] for k in before}
         log(f"phase {name}: {self.seconds[name]:.3f} s, launches {delta}")
-        if not any(os.environ.get(flag) for flag in ROW_FLAGS) and delta["K3"] != delta["K2"] + delta["K7"]:
+        if any(os.environ.get(flag) for flag in ROW_FLAGS):
+            if delta["K6"] != delta["K7"]:
+                raise AssertionError(f"{name}: {delta['K6']} K6 launches, not one per bucket pass (K7)")
+        elif delta["K3"] != delta["K2"] + delta["K7"]:
             raise AssertionError(f"{name}: {delta['K3']} K3 launches, not one per bucket pass (K2 + K7)")
         return out
 
@@ -836,7 +858,8 @@ def run_board(dev, timed: Phases, tag: str) -> None:
 
 def run_board_rows(dev, timed: Phases) -> dict:
     """run_board under BZ_ROW_NTT=1 BZ_ROW_MSM=1; -> its launch deltas,
-    which must show K5, K6 and K7 and no K2, K3 or K4."""
+    which must show K5, K6 and K7, K6 as often as K7, and no K2, K3 or
+    K4."""
     from battlezips_halo2_tpu_torch.ops import cuda
 
     before = dict(cuda.launches)
@@ -849,7 +872,8 @@ def run_board_rows(dev, timed: Phases) -> dict:
             os.environ.pop(flag)
     delta = {k: cuda.launches[k] - before[k] for k in before}
     log(f"row configuration launches: {delta}")
-    if min(delta["K5"], delta["K6"], delta["K7"]) <= 0 or delta["K2"] or delta["K3"] or delta["K4"]:
+    if (min(delta["K5"], delta["K6"], delta["K7"]) <= 0 or delta["K6"] != delta["K7"] or delta["K2"] or delta["K3"]
+            or delta["K4"]):
         raise AssertionError(f"the row configuration took the wrong kernels: {delta}")
     return delta
 
@@ -1058,15 +1082,19 @@ def main() -> int:
     lane_wise["K3"] = check_k3(dev, rng, 4096)
     # a board commit batch's window sums (c = 8: 32 windows of 256 buckets, one
     # column and 11 columns), an IPA round's (c = 2), signed c = 10 (26 windows x 4)
-    rows["K3"] = check_k3_windows(dev, rng, [(352, 256), (32, 256), (2, 4), (104, 513)])
+    window_shapes = [(352, 256), (32, 256), (2, 4), (104, 513)]
+    rows["K3"] = check_k3_windows(dev, rng, window_shapes)
     rows["K2"], rows["K7"] = check_k2_k7(dev, rng)
-    rows["K6"] = check_k6(dev, rng, 4096)
+    rows["K6"] = check_k6_windows(dev, rng, window_shapes)
+    lane_wise["K6"] = check_k6(dev, rng, 4096)
     log(f"phase kernels vs plain: {time.time() - t:.3f} s")
-    report_rows({**rows, "K1 elementwise field_op": lane_wise["K1"], "K3 lane-wise point_add": lane_wise["K3"]})
-    for r in rows["K3"]["per_shape"]:
-        log(f"  K3 window_sums {r['rows']} x {r['nbuck']} ({r['threads_per_row']} threads x {r['segment']}): "
-            f"{r['ms']:.4f} ms, old route {r['old_route_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
-            f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+    report_rows({**rows, "K1 elementwise field_op": lane_wise["K1"], "K3 lane-wise point_add": lane_wise["K3"],
+                 "K6 lane-wise point_add_planes": lane_wise["K6"]})
+    for name in ("K3", "K6"):
+        for r in rows[name]["per_shape"]:
+            log(f"  {name} window kernel {r['rows']} x {r['nbuck']} ({r['threads_per_row']} threads x "
+                f"{r['segment']}): {r['ms']:.4f} ms, old route {r['old_route_ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
 
     # the proof path: K1-K7
     cuda.reset_launches()
@@ -1091,7 +1119,7 @@ def main() -> int:
     rows["K1"] = check_k1_vm(dev, rng, vk, api.shot_keys(dev)[1].vk)
     log(f"phase K1 VM vs plain: {time.time() - t:.3f} s")
     report_rows({"K5": rows["K5"], "K1": rows["K1"], "K1 (shot, B=4)": rows["K1"]["shot"]})
-    for name in ("K1", "K3"):
+    for name in ("K1", "K3", "K6"):
         log(f"  {name} old route: {rows[name]['old_route_ms']:.4f} ms against {rows[name]['ms']:.4f} ms")
 
     # the microbenchmark path: K8 and K9
@@ -1114,7 +1142,8 @@ def main() -> int:
         if name in lane_wise:  # the elementwise kernel beside the new entry, under the same name
             extra["elementwise_kernel"] = {**lane_wise[name], "source": {
                 "K1": "battlezips_halo2_tpu_torch/csrc/field_ops.cu",
-                "K3": "battlezips_halo2_tpu_torch/csrc/point_add.cu"}[name]}
+                "K3": "battlezips_halo2_tpu_torch/csrc/point_add.cu",
+                "K6": "battlezips_halo2_tpu_torch/csrc/point_add_planes.cu"}[name]}
         kernels.append({
             "name": f"{name} {fn}", "route": "cuda", "source": f"battlezips_halo2_tpu_torch/{src}",
             "replaces": replaces, "launches": launches[name], "max_abs_err": r["max_abs_err"],

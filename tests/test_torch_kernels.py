@@ -181,6 +181,23 @@ def test_k6_point_add_planes(cuda):
     assert torch.equal(got.movedim(0, -2), C.point_add(spec, p, q))
 
 
+@pytest.mark.parametrize("rows,nbuck", [(2, 4), (32, 256)], ids=["ipa_c2", "board_c8"])
+def test_k6_window_sums_planes(cuda, rows, nbuck):
+    """K6's window kernel against its plain version and the host group law,
+    on affine points (the two add in different orders), in one launch."""
+    from battlezips_halo2_tpu_torch.ops import cuda as K
+
+    spec = L.FQ_SPEC
+    buckets, pts = bucket_rows(rows, nbuck, 60 + nbuck, cuda)
+    planes = buckets.permute(2, 0, 1, 3).contiguous()
+    before = K.launches["K6"]
+    got = M.window_sums_planes(spec, planes, nbuck)
+    assert K.launches["K6"] == before + 1
+    affine = C.jacobian_to_affine(spec, got.movedim(0, -2))
+    assert affine == C.jacobian_to_affine(spec, M.window_sums_planes_plain(spec, planes, nbuck).movedim(0, -2))
+    assert affine == [host_window_sum(row) for row in pts]
+
+
 def test_row_msm(cuda, monkeypatch):
     rng = random.Random(66)
     pts = [VESTA.mul(VESTA.generator, rng.randrange(1, 1 << 64)) for _ in range(300)]

@@ -71,8 +71,9 @@ def test_proof_matches_golden_and_jax_and_cross_verifies():
 
 def test_proof_under_row_flags_matches_golden(monkeypatch):
     """Under BZ_ROW_NTT and BZ_ROW_MSM (the reference's row-layout
-    configuration: kernels K5, K6 and K7 in place of K2, K3 and K4) the
-    proof is still the golden one, and verifies."""
+    configuration: kernels K5, K6 and K7 in place of K2, K3 and K4, K6's
+    window kernel once per bucket pass) the proof is still the golden one,
+    and verifies."""
     from battlezips_halo2_tpu_torch.curves import limb as C
     from battlezips_halo2_tpu_torch.ops import msm as M
     from battlezips_halo2_tpu_torch.ops import ntt as D
@@ -88,7 +89,7 @@ def test_proof_under_row_flags_matches_golden(monkeypatch):
 
         monkeypatch.setattr(module, name, wrapped)
 
-    for module, name in ((D, "butterfly_rows_plain"), (D, "butterfly_stage_plain"), (C, "point_add_planes"),
+    for module, name in ((D, "butterfly_rows_plain"), (D, "butterfly_stage_plain"), (M, "window_sums_planes"),
                          (C, "point_add"), (M, "bucket_sums_plain")):
         spy(module, name)
     monkeypatch.setenv("BZ_ROW_NTT", "1")
@@ -101,4 +102,5 @@ def test_proof_under_row_flags_matches_golden(monkeypatch):
     assert proof.hex() == GOLDEN["proof_hex"]
     assert verify_proof(params, pk.vk, proof, instance)
     assert calls.get("butterfly_stage_plain", 0) == 0 and calls.get("point_add", 0) == 0
-    assert min(calls["butterfly_rows_plain"], calls["point_add_planes"], calls["bucket_sums_plain"]) > 0
+    assert min(calls["butterfly_rows_plain"], calls["bucket_sums_plain"]) > 0
+    assert calls["window_sums_planes"] == calls["bucket_sums_plain"]  # one window launch per bucket pass
