@@ -4,7 +4,8 @@
 // An element is 8 little-endian 32-bit limbs, value = sum v[i] * 2^(32 i),
 // always canonical (< p). Multiplication is Montgomery with R = 2^256 by
 // CIOS: 32 x 32 -> 64-bit products, which the compiler emits as
-// mad.wide.u32 / mul.hi.u32. The TPU kernels this replaces split limbs into
+// mad.wide.u32 / mul.hi.u32, or, in a source that opts in
+// (BZ_FE_CARRY_CHAIN), PTX carry chains. The TPU kernels this replaces split limbs into
 // 16-bit halves and ran the products as bf16 matmuls because the TPU has no
 // wide integer multiply; none of that carries over.
 //
@@ -86,6 +87,22 @@ __device__ __forceinline__ bool fe_is_zero(const Fe& a) {
   return acc == 0u;
 }
 
+// A source that defines BZ_FE_MUL_CALL before including this header calls
+// one out-of-line copy of the product instead of inlining it. A point
+// addition inlines 11-24 products of ~400 instructions each; on the H100
+// the call cut the time of long addition chains by a third to a half, and
+// slowed the quotient VM by half (PERF.md §6).
+#ifdef BZ_FE_MUL_CALL
+#define BZ_FE_MUL_DECL static __device__ __noinline__
+#else
+#define BZ_FE_MUL_DECL __device__ __forceinline__
+#endif
+
+// A source that defines BZ_FE_CARRY_CHAIN before including this header gets
+// the field ops below written as PTX carry chains; the others get these,
+// 64-bit C++ whose carries travel in the top half of each sum.
+#ifndef BZ_FE_CARRY_CHAIN
+
 // t (9 words, value < 2p) -> t mod p
 __device__ __forceinline__ Fe fe_reduce_once(const FieldConsts& F, const uint32_t* t) {
   Fe d;
@@ -136,17 +153,6 @@ __device__ __forceinline__ Fe fe_sub(const FieldConsts& F, const Fe& a, const Fe
   return d;
 }
 
-// A source that defines BZ_FE_MUL_CALL before including this header calls
-// one out-of-line copy of the product instead of inlining it. A point
-// addition inlines 11-24 products of ~400 instructions each; on the H100
-// the call cut the time of long addition chains by a third to a half, and
-// slowed the quotient VM by half (PERF.md §6).
-#ifdef BZ_FE_MUL_CALL
-#define BZ_FE_MUL_DECL static __device__ __noinline__
-#else
-#define BZ_FE_MUL_DECL __device__ __forceinline__
-#endif
-
 // Montgomery product a * b * 2^-256 mod p (CIOS), a, b < p.
 BZ_FE_MUL_DECL Fe fe_mul(const FieldConsts& F, const Fe& a, const Fe& b) {
   uint32_t t[BZ_NL + 2];
@@ -179,6 +185,251 @@ BZ_FE_MUL_DECL Fe fe_mul(const FieldConsts& F, const Fe& a, const Fe& b) {
   }
   return fe_reduce_once(F, t);
 }
+
+// x R^-1 mod p for canonical x: the reduction half of fe_mul's CIOS loop
+// on x with a zero high half; the value stays below 2p throughout.
+__device__ __forceinline__ Fe fe_redc(const FieldConsts& F, const Fe& x) {
+  uint32_t t[BZ_NL + 1];
+#pragma unroll
+  for (int i = 0; i < BZ_NL; ++i) t[i] = x.v[i];
+  t[BZ_NL] = 0u;
+#pragma unroll
+  for (int i = 0; i < BZ_NL; ++i) {
+    const uint32_t m = t[0] * F.n0;
+    uint64_t s = (uint64_t)m * F.p[0] + t[0];
+    uint64_t c = s >> 32;
+#pragma unroll
+    for (int j = 1; j < BZ_NL; ++j) {
+      s = (uint64_t)m * F.p[j] + t[j] + c;
+      t[j - 1] = (uint32_t)s;
+      c = s >> 32;
+    }
+    s = (uint64_t)t[BZ_NL] + c;
+    t[BZ_NL - 1] = (uint32_t)s;
+    t[BZ_NL] = (uint32_t)(s >> 32);
+  }
+  return fe_reduce_once(F, t);
+}
+
+#else  // BZ_FE_CARRY_CHAIN
+
+// ------------------------------------------------- carry-chain field ops
+//
+// The carry rides in the condition code: add.cc / addc, sub.cc / subc and
+// mad.lo.cc / madc.hi.cc, one PTX instruction per helper below. A chain is
+// a run of these statements with nothing between them that writes the
+// flag (the compiler's own code never does), kept in order by volatile.
+// The product is CIOS with a's limbs split into an even accumulator (a[0],
+// a[2], ... times b[i]: words j and j + 1 for even j do not overlap) and an
+// odd one (a[1], a[3], ..., one word up), so each step is two carry chains
+// that do not wait on each other; m * p splits the same way. After each
+// word of b the sum shifts down a word and the two accumulators swap
+// roles. Both Pasta primes are below 2^255, so every sum fits and the
+// carries out of the top words are zero. Outputs are canonical: the same
+// bits as the 64-bit versions.
+
+__device__ __forceinline__ uint32_t cc_add(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t cc_addc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t addc_end(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t cc_sub(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t cc_subc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t subc_end(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+// lo(a * b) + c, carry out
+__device__ __forceinline__ uint32_t cc_mad_lo(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t cc_madc_lo(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t cc_madc_hi(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t madc_hi_end(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.hi.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+
+// acc[j], acc[j + 1] = a[j] * bi for even j: no carries
+__device__ __forceinline__ void cc_mul_n(uint32_t* acc, const uint32_t* a, uint32_t bi) {
+#pragma unroll
+  for (int j = 0; j < BZ_NL; j += 2) {
+    acc[j] = a[j] * bi;
+    acc[j + 1] = __umulhi(a[j], bi);
+  }
+}
+
+// acc += a[j] * bi at words j, j + 1 for even j; the carry out of acc[7]
+// stays in the flag
+__device__ __forceinline__ void cc_cmad_n(uint32_t* acc, const uint32_t* a, uint32_t bi) {
+  acc[0] = cc_mad_lo(a[0], bi, acc[0]);
+  acc[1] = cc_madc_hi(a[0], bi, acc[1]);
+#pragma unroll
+  for (int j = 2; j < BZ_NL; j += 2) {
+    acc[j] = cc_madc_lo(a[j], bi, acc[j]);
+    acc[j + 1] = cc_madc_hi(a[j], bi, acc[j + 1]);
+  }
+}
+
+// odd[j] = odd[j + 2] + a[j] * bi + carry: the odd accumulator moves down
+// the two words by which it trails after a swap
+__device__ __forceinline__ void cc_madc_n_rshift(uint32_t* odd, const uint32_t* a, uint32_t bi) {
+#pragma unroll
+  for (int j = 0; j < BZ_NL - 2; j += 2) {
+    odd[j] = cc_madc_lo(a[j], bi, odd[j + 2]);
+    odd[j + 1] = cc_madc_hi(a[j], bi, odd[j + 3]);
+  }
+  odd[BZ_NL - 2] = cc_madc_lo(a[BZ_NL - 2], bi, 0u);
+  odd[BZ_NL - 1] = madc_hi_end(a[BZ_NL - 2], bi, 0u);
+}
+
+// One word of b: (even + odd * 2^32) += a * bi, then + m * p with
+// m = even[0] * n0, which zeroes word 0. On entry after the first word
+// even holds words 0..7 and odd, the previous even, words -1..6.
+__device__ __forceinline__ void cc_mad_n_redc(const FieldConsts& F, uint32_t* even, uint32_t* odd,
+                                              const uint32_t* a, uint32_t bi, bool first) {
+  if (first) {
+    cc_mul_n(odd, a + 1, bi);
+    cc_mul_n(even, a, bi);
+  } else {
+    even[0] = cc_add(even[0], odd[1]);
+    cc_madc_n_rshift(odd, a + 1, bi);
+    cc_cmad_n(even, a, bi);
+    odd[BZ_NL - 1] = addc_end(odd[BZ_NL - 1], 0u);
+  }
+  const uint32_t m = even[0] * F.n0;
+  cc_cmad_n(odd, F.p + 1, m);
+  cc_cmad_n(even, F.p, m);
+  odd[BZ_NL - 1] = addc_end(odd[BZ_NL - 1], 0u);
+}
+
+// t (9 words, value < 2p) -> t mod p
+__device__ __forceinline__ Fe fe_reduce_once(const FieldConsts& F, const uint32_t* t) {
+  uint32_t d[BZ_NL];
+  d[0] = cc_sub(t[0], F.p[0]);
+#pragma unroll
+  for (int i = 1; i < BZ_NL; ++i) d[i] = cc_subc(t[i], F.p[i]);
+  cc_subc(t[BZ_NL], 0u);
+  const uint32_t lt = subc_end(0u, 0u);  // a borrow out of the top word: t < p
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < BZ_NL; ++i) r.v[i] = lt ? t[i] : d[i];
+  return r;
+}
+
+__device__ __forceinline__ Fe fe_add(const FieldConsts& F, const Fe& a, const Fe& b) {
+  uint32_t t[BZ_NL + 1];
+  t[0] = cc_add(a.v[0], b.v[0]);
+#pragma unroll
+  for (int i = 1; i < BZ_NL; ++i) t[i] = cc_addc(a.v[i], b.v[i]);
+  t[BZ_NL] = addc_end(0u, 0u);
+  return fe_reduce_once(F, t);
+}
+
+__device__ __forceinline__ Fe fe_sub(const FieldConsts& F, const Fe& a, const Fe& b) {
+  Fe d;
+  d.v[0] = cc_sub(a.v[0], b.v[0]);
+#pragma unroll
+  for (int i = 1; i < BZ_NL; ++i) d.v[i] = cc_subc(a.v[i], b.v[i]);
+  const uint32_t mask = subc_end(0u, 0u);  // a < b: add p back
+  uint32_t pm[BZ_NL];
+#pragma unroll
+  for (int i = 0; i < BZ_NL; ++i) pm[i] = F.p[i] & mask;
+  d.v[0] = cc_add(d.v[0], pm[0]);
+#pragma unroll
+  for (int i = 1; i < BZ_NL - 1; ++i) d.v[i] = cc_addc(d.v[i], pm[i]);
+  d.v[BZ_NL - 1] = addc_end(d.v[BZ_NL - 1], pm[BZ_NL - 1]);
+  return d;
+}
+
+// t (9 words) = even + odd[1..7]: the value after the last word of b,
+// shifted down a word (odd, the last round's even, holds words -1..6)
+__device__ __forceinline__ void cc_fold(uint32_t* t, const uint32_t* even, const uint32_t* odd) {
+  t[0] = cc_add(even[0], odd[1]);
+#pragma unroll
+  for (int j = 1; j < BZ_NL - 1; ++j) t[j] = cc_addc(even[j], odd[j + 1]);
+  t[BZ_NL - 1] = cc_addc(even[BZ_NL - 1], 0u);
+  t[BZ_NL] = addc_end(0u, 0u);
+}
+
+// Montgomery product a * b * 2^-256 mod p, a, b < p.
+BZ_FE_MUL_DECL Fe fe_mul(const FieldConsts& F, const Fe& a, const Fe& b) {
+  uint32_t even[BZ_NL], odd[BZ_NL];
+#pragma unroll
+  for (int i = 0; i < BZ_NL; i += 2) {
+    cc_mad_n_redc(F, even, odd, a.v, b.v[i], i == 0);
+    cc_mad_n_redc(F, odd, even, a.v, b.v[i + 1], false);
+  }
+  uint32_t t[BZ_NL + 1];
+  cc_fold(t, even, odd);
+  return fe_reduce_once(F, t);
+}
+
+// x R^-1 mod p for canonical x: fe_mul's reduction alone (b = 1), with the
+// sum x + m * p starting in the even accumulator. The result is below p
+// ((x + M p) / 2^256 with x < p and M < 2^256), so nothing is subtracted.
+__device__ __forceinline__ Fe fe_redc(const FieldConsts& F, const Fe& x) {
+  uint32_t even[BZ_NL], odd[BZ_NL];
+#pragma unroll
+  for (int i = 0; i < BZ_NL; ++i) {
+    even[i] = x.v[i];
+    odd[i] = 0u;
+  }
+#pragma unroll
+  for (int i = 0; i < BZ_NL; ++i) {
+    uint32_t* e = (i & 1) ? odd : even;
+    uint32_t* o = (i & 1) ? even : odd;
+    if (i > 0) {  // shift down a word: o's words -1..6 become 0..5 of its next role
+      e[0] = cc_add(e[0], o[1]);
+#pragma unroll
+      for (int j = 0; j < BZ_NL - 2; ++j) o[j] = cc_addc(o[j + 2], 0u);
+      o[BZ_NL - 2] = addc_end(0u, 0u);
+      o[BZ_NL - 1] = 0u;
+    }
+    const uint32_t m = e[0] * F.n0;
+    cc_cmad_n(o, F.p + 1, m);
+    cc_cmad_n(e, F.p, m);
+    o[BZ_NL - 1] = addc_end(o[BZ_NL - 1], 0u);
+  }
+  uint32_t t[BZ_NL + 1];
+  cc_fold(t, even, odd);
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < BZ_NL; ++j) r.v[j] = t[j];
+  return r;
+}
+
+#endif  // BZ_FE_CARRY_CHAIN
 
 // ------------------------------------------------------------------ points
 

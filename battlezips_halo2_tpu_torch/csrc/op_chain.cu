@@ -10,33 +10,12 @@
 // mechanics that 8 x 32-bit limbs do not have; mul32 has mul's value.
 // Bound on the H100: operations for the field ops (the chain is one
 // thread's dependent sequence, 64 bytes read and 32 written per element),
-// bytes for raw and noop.
+// bytes for raw and noop. 2^15 threads are ~2 warps a scheduler, so the
+// field ops take the carry-chain forms of field.cuh (BZ_FE_CARRY_CHAIN:
+// a product is two independent carry chains), and the host's plan
+// (ops/cuda.py::chain_grid) sizes blocks so that every SM gets one.
+#define BZ_FE_CARRY_CHAIN
 #include "field.cuh"
-
-// x R^-1 mod p for canonical x: the reduction half of fe_mul's CIOS loop
-// on x with a zero high half; the value stays below 2p throughout.
-__device__ __forceinline__ Fe fe_redc(const FieldConsts& F, const Fe& x) {
-  uint32_t t[BZ_NL + 1];
-#pragma unroll
-  for (int i = 0; i < BZ_NL; ++i) t[i] = x.v[i];
-  t[BZ_NL] = 0u;
-#pragma unroll
-  for (int i = 0; i < BZ_NL; ++i) {
-    const uint32_t m = t[0] * F.n0;
-    uint64_t s = (uint64_t)m * F.p[0] + t[0];
-    uint64_t c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < BZ_NL; ++j) {
-      s = (uint64_t)m * F.p[j] + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t[BZ_NL] + c;
-    t[BZ_NL - 1] = (uint32_t)s;
-    t[BZ_NL] = (uint32_t)(s >> 32);
-  }
-  return fe_reduce_once(F, t);
-}
 
 template <int OP>
 __global__ void op_chain_kernel(FieldConsts F, const uint32_t* __restrict__ a,
@@ -63,10 +42,10 @@ __global__ void op_chain_kernel(FieldConsts F, const uint32_t* __restrict__ a,
   fe_store(out + i * BZ_NL, x);
 }
 
+// block: threads a block, from the host's plan (ops/cuda.py::chain_grid)
 extern "C" int bz_op_chain(int op, const uint32_t* consts, const void* a, const void* b, void* out,
-                           long long n, int reps, void* stream) {
+                           long long n, int reps, int block, void* stream) {
   const FieldConsts F = field_consts(consts);
-  const unsigned int block = 256;
   const unsigned int grid = grid_for(n, block);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t* pa = static_cast<const uint32_t*>(a);

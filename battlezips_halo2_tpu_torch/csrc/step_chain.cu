@@ -15,8 +15,17 @@
 // generic formula returns (0, 0, 0), which the next step treats as the
 // identity (Z = 0). The device function is K2's (jac_add_mixed<false> in
 // field.cuh), so these bits equal the reference's, not a doubling.
+//
 // Bound on the H100: operations (11 Montgomery products per add against
-// 1 byte of head per step).
+// 1 byte of head per step). 2^15 lanes are ~2 warps a scheduler, each a
+// chain of dependent products, so the product's latency and instruction
+// count set the time. The field ops are field.cuh's carry chains
+// (BZ_FE_CARRY_CHAIN): a step is ~2600 SASS instructions inlined, against
+// ~6800 with the 64-bit product, and runs 2.5x faster. Taking the
+// addition's independent products in pairs, loading the next step's head
+// ahead, and the product out of line (BZ_FE_MUL_CALL) gained nothing or
+// lost on the H100 (PERF.md §6).
+#define BZ_FE_CARRY_CHAIN
 #include "field.cuh"
 
 __global__ void step_chain_kernel(FieldConsts F, uint32_t* acc, const uint32_t* __restrict__ pxy,
@@ -38,10 +47,10 @@ __global__ void step_chain_kernel(FieldConsts F, uint32_t* acc, const uint32_t* 
   jac_store(acc + i * 3 * BZ_NL, a);
 }
 
+// block: threads a block, from the host's plan (ops/cuda.py::chain_grid)
 extern "C" int bz_step_chain(const uint32_t* consts, void* acc, const void* pxy, const void* heads,
-                             long long n, int s0, int s1, void* stream) {
+                             long long n, int s0, int s1, int block, void* stream) {
   const FieldConsts F = field_consts(consts);
-  const unsigned int block = 128;
   step_chain_kernel<<<grid_for(n, block), block, 0, static_cast<cudaStream_t>(stream)>>>(
       F, static_cast<uint32_t*>(acc), static_cast<const uint32_t*>(pxy),
       static_cast<const uint8_t*>(heads), n, s0, s1);

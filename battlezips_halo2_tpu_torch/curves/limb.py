@@ -263,36 +263,51 @@ def plain_step_chain(spec: FieldSpec, acc: torch.Tensor, pxy: torch.Tensor, head
     return acc
 
 
-def step_chain(
+def launch_ranges(steps: int, steps_per_launch: int | None) -> list[tuple[int, int]]:
+    """K8's launches over ``steps`` steps: [s0, s1) ranges of
+    ``steps_per_launch`` steps (None: all in one), the last one partial."""
+    if steps_per_launch is not None and steps_per_launch < 1:
+        raise ValueError(f"steps_per_launch must be >= 1, got {steps_per_launch}")
+    per = steps if steps_per_launch is None else steps_per_launch
+    return [(s0, min(s0 + per, steps)) for s0 in range(0, steps, max(per, 1))]
+
+
+def step_chain_(
     spec: FieldSpec, acc: torch.Tensor, pxy: torch.Tensor, heads: torch.Tensor, steps_per_launch: int | None = None
 ) -> torch.Tensor:
-    """K8: the chained bucket step over lanes. acc (N, 3, 8) Jacobian, pxy
-    (N, 2, 8) affine Montgomery rows (all-zero = identity), heads (S, N)
-    bool -> acc after the S steps (a new tensor). One thread holds a lane's
-    acc across ``steps_per_launch`` steps (None: all S in one launch; 1:
-    one launch per step, the reference's dataflow). A CUDA tensor launches
-    the kernel; a CPU tensor runs :func:`plain_step_chain`."""
+    """K8 in place: acc (N, 3, 8) Jacobian after the S steps of heads (S, N)
+    bool over pxy (N, 2, 8) affine Montgomery rows (all-zero = identity).
+    One thread holds a lane's acc across each launch's steps
+    (:func:`launch_ranges`: None, all S in one launch; 1, one launch per
+    step, the reference's dataflow). A CUDA tensor launches the kernel; a
+    CPU tensor runs :func:`plain_step_chain` over the same ranges."""
     n = acc.shape[0]
     if acc.shape != (n, 3, L.NLIMBS) or pxy.shape != (n, 2, L.NLIMBS):
         raise ValueError(f"expected acc (N, 3, 8) and pxy (N, 2, 8): {tuple(acc.shape)}, {tuple(pxy.shape)}")
     if heads.dim() != 2 or heads.shape[1] != n or heads.dtype != torch.bool:
         raise ValueError(f"heads must be (steps, {n}) bool, got {tuple(heads.shape)} {heads.dtype}")
-    if steps_per_launch is not None and steps_per_launch < 1:
-        raise ValueError(f"steps_per_launch must be >= 1, got {steps_per_launch}")
+    ranges = launch_ranges(heads.shape[0], steps_per_launch)
     if not acc.is_cuda:
-        return plain_step_chain(spec, acc, pxy, heads)
+        for s0, s1 in ranges:
+            acc.copy_(plain_step_chain(spec, acc, pxy, heads[s0:s1]))
+        return acc
     from ..ops import cuda
 
-    out = acc.clone()
-    for t, what in ((out, "acc"), (pxy, "pxy")):
+    for t, what in ((acc, "acc"), (pxy, "pxy")):
         cuda.require(t, torch.int32, f"K8 step chain {what}")
     cuda.require(heads, torch.bool, "K8 step chain heads")
-    steps = heads.shape[0]
-    per = steps if steps_per_launch is None else steps_per_launch
     if n:
-        for s0 in range(0, steps, per):
+        block, _ = cuda.chain_grid(n, cuda.sm_count(acc.device))
+        for s0, s1 in ranges:
             cuda.launch(
-                "K8", "bz_step_chain", out,
-                spec.kernel_consts, cuda.ptr(out), cuda.ptr(pxy), cuda.ptr(heads), n, s0, min(s0 + per, steps),
+                "K8", "bz_step_chain", acc,
+                spec.kernel_consts, cuda.ptr(acc), cuda.ptr(pxy), cuda.ptr(heads), n, s0, s1, block,
             )
-    return out
+    return acc
+
+
+def step_chain(
+    spec: FieldSpec, acc: torch.Tensor, pxy: torch.Tensor, heads: torch.Tensor, steps_per_launch: int | None = None
+) -> torch.Tensor:
+    """K8 on a copy of acc: :func:`step_chain_` -> a new tensor."""
+    return step_chain_(spec, acc.clone(), pxy, heads, steps_per_launch)

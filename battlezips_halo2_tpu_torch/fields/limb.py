@@ -338,8 +338,8 @@ def plain_op_chain(op: str, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, r
 def op_chain(op: str, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, reps: int = 32) -> torch.Tensor:
     """K9: ``reps`` chained ``x = op(x, b)`` per row of limbs (op in
     :data:`CHAIN_OPS`; a and b canonical for the field ops), one thread per
-    row. A CUDA tensor launches the kernel; a CPU tensor runs
-    :func:`plain_op_chain`."""
+    row in blocks from ``ops/cuda.py::chain_grid``. A CUDA tensor launches
+    the kernel; a CPU tensor runs :func:`plain_op_chain`."""
     if op not in CHAIN_OPS:
         raise ValueError(f"unknown chain op {op!r}: expected one of {sorted(CHAIN_OPS)}")
     if a.shape != b.shape or a.shape[-1] != NLIMBS:
@@ -355,7 +355,9 @@ def op_chain(op: str, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, reps: i
         cuda.require(t, torch.int32, "K9 op chain")
     n = a.numel() // NLIMBS
     if n:
+        block, _ = cuda.chain_grid(n, cuda.sm_count(a.device))
         cuda.launch(
-            "K9", "bz_op_chain", a, CHAIN_OPS[op], spec.kernel_consts, cuda.ptr(a), cuda.ptr(b), cuda.ptr(out), n, reps
+            "K9", "bz_op_chain", a,
+            CHAIN_OPS[op], spec.kernel_consts, cuda.ptr(a), cuda.ptr(b), cuda.ptr(out), n, reps, block,
         )
     return out

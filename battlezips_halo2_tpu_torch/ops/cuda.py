@@ -20,8 +20,10 @@ under a lock, so the counts stay exact when several threads prove at once
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -63,10 +65,10 @@ _SIGNATURES = {
     "bz_msm_buckets": (_P, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     # complete, resident threads of the bucket pass's phase A on the current card (out)
     "bz_msm_bucket_resident": (_INT, ctypes.POINTER(_I64)),
-    # consts, acc (in place), pxy, heads, n, first step, end step, stream
-    "bz_step_chain": (_P, _P, _P, _P, _I64, _INT, _INT, _P),
-    # op, consts, a, b, out, n, reps, stream
-    "bz_op_chain": (_INT, _P, _P, _P, _P, _I64, _INT, _P),
+    # consts, acc (in place), pxy, heads, n, first step, end step, threads a block, stream
+    "bz_step_chain": (_P, _P, _P, _P, _I64, _INT, _INT, _INT, _P),
+    # op, consts, a, b, out, n, reps, threads a block, stream
+    "bz_op_chain": (_INT, _P, _P, _P, _P, _I64, _INT, _INT, _P),
     # consts, buckets, out, rows, nbuck, log2 threads per row, segment, stream
     "bz_window_sums": (_P, _P, _P, _I64, _INT, _INT, _INT, _P),
     # resident threads of K3's window kernel on the current card (out)
@@ -91,13 +93,9 @@ def count(name: str) -> None:
         launches[name] += 1
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-
-
-def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources():
+def _source_hash(src: Path, flags: tuple) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(flags)).encode())
+    for path in sorted(src.glob("*.cu")) + sorted(src.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -113,19 +111,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build() -> Path:
-    """Compile csrc/*.cu (if this source hash is not built yet), one nvcc
-    per source, all started together, then link them; -> .so path."""
-    out_dir = BUILD_ROOT / _source_hash()
+def build(src: Path = CSRC, flags: tuple = ()) -> Path:
+    """Compile src/*.cu with ``flags`` beside NVCC_FLAGS (if this source
+    hash is not built yet), one nvcc per source, all started together, then
+    link them; -> .so path. The defaults build the port's kernels; a tool
+    that compares two builds passes a copy of the sources."""
+    out_dir = BUILD_ROOT / _source_hash(src, flags)
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
     jobs = []
-    for src in sorted(CSRC.glob("*.cu")):
-        obj = out_dir / f"{src.stem}.{tag}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+    for cu in sorted(src.glob("*.cu")):
+        obj = out_dir / f"{cu.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(cu)]
         jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log, failed = [], []
     for cmd, _, proc in jobs:
@@ -149,17 +149,55 @@ def build() -> Path:
     return lib
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """A built kernel library with the argument types of the entries it has."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def ptxas_report(lib: Path) -> list[str]:
+    """"kernel: registers ...; stack frame ..." for each kernel of a built
+    library, as ``-Xptxas -v`` printed them into its build log."""
+    lines, entry, frame = [], None, None
+    for line in (lib.parent / "build.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry, frame = line.split("'")[1], None
+        elif "stack frame" in line:
+            frame = line.strip()
+        elif "Used" in line and "registers" in line and entry:
+            lines.append(f"{entry}: {line.split(':', 1)[1].strip()}; {frame}")
+    return lines
+
+
+def sass_counts(lib: Path) -> dict[str, tuple[int, int, int]]:
+    """kernel -> (SASS instructions, multiply instructions, 32-bit multiply
+    results) of a built library, from ``cuobjdump -sass``: IMAD.WIDE is a
+    64-bit product (two results), IMAD.HI and IMAD one; IMAD.X, IMAD.MOV,
+    IMAD.SHL and IMAD.IADD multiply nothing."""
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        name, body = block.split("\n", 1)
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body)
+        wide = sum(op.startswith("IMAD.WIDE") for op in ops)
+        single = sum(op == "IMAD" or op.startswith("IMAD.HI") for op in ops)
+        counts[name.strip()] = (len(ops), wide + single, 2 * wide + single)
+    return counts
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = load(build())
     return _lib
 
 
@@ -186,6 +224,22 @@ def launch(kernel: str, entry: str, on: torch.Tensor, *args) -> None:
         status = getattr(library(), entry)(*args, stream(on))
     check(status, f"{kernel} {entry}")
     count(kernel)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def chain_grid(n: int, sms: int) -> tuple[int, int]:
+    """(threads a block, blocks) of a chain kernel (K8, K9) over n lanes, one
+    lane a thread: the largest power of two from 256 down to 32 whose blocks
+    still reach all ``sms`` SMs (2^15 lanes in blocks of 256 are 128 blocks,
+    which leave 4 of the H100's 132 SMs idle)."""
+    block = 256
+    while block > 32 and -(-n // block) < sms:
+        block //= 2
+    return block, -(-n // block)
 
 
 def require(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:

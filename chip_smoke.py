@@ -60,7 +60,9 @@ from the root of a checkout. In order, it
 5. drives the microbenchmark path, ``tools/torch_exp_step_t.py`` at the
    reference's shapes, which holds K8 (one launch, and one launch per
    step) and K9 (every op) bit-exact against their plain chains and times
-   them; K8 and K9 must each have launched on this path;
+   them with the card setting the pace (the host-paced times beside), and
+   K9's raw and noop as their one PyTorch call; K8 and K9 must each have
+   launched on this path;
 6. prints a JSON line of per-kernel numbers, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -957,20 +959,31 @@ def run_microbenchmark(dev) -> tuple[dict, dict]:
     k8 = {
         "max_abs_err": chain["max_abs_err"], "ms": chain["one_launch"]["ms"], "plain_ms": chain["plain_ms"],
         "bound_ms": bms, "bound_by": by, "ms_launch_per_step": chain["launch_per_step"]["ms"],
-        "shape": f"{n} lanes x {steps} steps, Vesta, {chain['additions']} additions; one launch",
+        "host_paced_ms": chain["one_launch"]["host_paced_ms"],
+        "host_paced_ms_launch_per_step": chain["launch_per_step"]["host_paced_ms"],
+        "shape": f"{n} lanes x {steps} steps, Vesta, {chain['additions']} additions; one launch, device-paced",
     }
     op_results = {"mul": MONT_MUL_RESULTS, "redc": MONT_MUL_RESULTS - 128, **CHAIN_OP_RESULTS}
     per_op = {}
     for op, r in kmicro["ops"].items():
         obms, oby = bound_ms(n * 3 * 32, n * reps * op_results[op])
-        per_op[op] = {"ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": obms, "bound_by": oby,
-                      "max_abs_err": r["max_abs_err"]}
+        per_op[op] = {"ms": r["ms"], "host_paced_ms": r["host_paced_ms"], "plain_ms": r["plain_ms"],
+                      "bound_ms": obms, "bound_by": oby, "max_abs_err": r["max_abs_err"],
+                      "library_ms": r.get("library_ms"), "library_max_abs_err": r.get("library_max_abs_err")}
+        if r.get("library_max_abs_err"):
+            raise AssertionError(f"K9 {op}'s library call differs from the plain chain")
     mul = per_op["mul"]
     k9 = {
         "max_abs_err": max(r["max_abs_err"] for r in per_op.values()), "ms": mul["ms"], "plain_ms": mul["plain_ms"],
-        "bound_ms": mul["bound_ms"], "bound_by": mul["bound_by"], "per_op": per_op,
-        "shape": f"mul x {reps} over {n} Fq elements (per_op: every op)",
+        "bound_ms": mul["bound_ms"], "bound_by": mul["bound_by"], "host_paced_ms": mul["host_paced_ms"],
+        "launch_floor_ms": kmicro["launch_floor_ms"], "per_op": per_op,
+        "shape": f"mul x {reps} over {n} Fq elements, device-paced (per_op: every op)",
     }
+    log(f"  launch floor (K9 noop, device-paced): {kmicro['launch_floor_ms']:.4f} ms a launch")
+    for op, r in per_op.items():
+        lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
+        log(f"  K9 {op}: {r['ms']:.4f} ms device-paced, {r['host_paced_ms']:.4f} host-paced, bound "
+            f"{r['bound_ms']:.6f} ({r['bound_by']}), floor + bound {kmicro['launch_floor_ms'] + r['bound_ms']:.4f}{lib}")
     return k8, k9
 
 
@@ -988,35 +1001,20 @@ def card_int_rate() -> tuple[float, int, float]:
     return INT_RESULTS_PER_SM_CLOCK * sms * clock, sms, clock
 
 
-def _sass_multiplies(sass: str, function: str) -> tuple[int, int]:
-    """(multiply instructions, 32-bit results) of one function's SASS:
-    IMAD.WIDE is a 64-bit product (two results), IMAD.HI and IMAD one;
-    IMAD.X (add with carry), IMAD.MOV, IMAD.SHL and IMAD.IADD multiply
-    nothing."""
-    import re
-
-    body = sass.split(f"Function : {function}", 1)[1].split("Function : ", 1)[0]
-    instrs = results = 0
-    for op in re.findall(r"\b(IMAD(?:\.[A-Z0-9]+)*)\b", body):
-        if op.startswith("IMAD.WIDE"):
-            instrs, results = instrs + 1, results + 2
-        elif op == "IMAD" or op.startswith("IMAD.HI"):
-            instrs, results = instrs + 1, results + 1
-    return instrs, results
-
-
-def sass_mont_mul(lib: Path) -> tuple[int, int]:
+def sass_mont_mul(lib: Path) -> tuple[tuple[int, int], tuple[int, int]]:
     """Multiply instructions and results of one Montgomery product in the
-    built library: K1's multiply kernel minus its add kernel, which share
-    every instruction but the product's."""
+    built library, a kernel's multiply variant minus its add variant, which
+    share every instruction but the product's: K1's (the 64-bit product of
+    the proof path, which the operations bounds count) and K9's (the
+    carry-chain product of K8 and K9)."""
     from battlezips_halo2_tpu_torch.ops import cuda
 
-    cuobjdump = Path(cuda._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    mul = _sass_multiplies(sass, "_Z15field_op_kernelILi0EEv11FieldConstsPKjS2_Pjxx")
-    add = _sass_multiplies(sass, "_Z15field_op_kernelILi1EEv11FieldConstsPKjS2_Pjxx")
-    return mul[0] - add[0], mul[1] - add[1]
+    counts = cuda.sass_counts(lib)
+    out = []
+    for kernel in ("_Z15field_op_kernelILi", "_Z15op_chain_kernelILi"):
+        (mul,), (add,) = ([v for k, v in counts.items() if k.startswith(f"{kernel}{op}E")] for op in (0, 1))
+        out.append((mul[1] - add[1], mul[2] - add[2]))
+    return out[0], out[1]
 
 
 def report_rows(rows: dict) -> None:
@@ -1058,21 +1056,16 @@ def main() -> int:
     lib = cuda.build()
     cuda.library()
     log(f"phase build: {time.time() - t:.3f} s ({lib})")
-    entry = frame = None
-    for line in (lib.parent / "build.log").read_text().splitlines():
-        if "Compiling entry function" in line:
-            entry, frame = line.split("'")[1], None
-        elif "stack frame" in line:
-            frame = line.strip()
-        elif "Used" in line and "registers" in line and entry:
-            log(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}; {frame}")
+    for line in cuda.ptxas_report(lib):
+        log(f"  ptxas {line}")
 
     global OPS_PER_S, MONT_MUL_RESULTS
     OPS_PER_S, sms, clock = card_int_rate()
-    instrs, MONT_MUL_RESULTS = sass_mont_mul(lib)
+    (instrs, MONT_MUL_RESULTS), (cc_instrs, cc_results) = sass_mont_mul(lib)
     log(f"operations bound: {INT_RESULTS_PER_SM_CLOCK} results/SM/clock x {sms} SMs x {clock / 1e6:.0f} MHz = "
         f"{OPS_PER_S:.4g}/s; Montgomery product in SASS: {instrs} multiply instructions "
-        f"(CIOS count {MAD_PER_MONT_MUL}), {MONT_MUL_RESULTS} results")
+        f"(CIOS count {MAD_PER_MONT_MUL}), {MONT_MUL_RESULTS} results; the carry-chain product of K8 / K9: "
+        f"{cc_instrs} multiply instructions, {cc_results} results (the bounds count {MONT_MUL_RESULTS})")
 
     rng = random.Random(2024)
     t = time.time()
@@ -1138,7 +1131,9 @@ def main() -> int:
     kernels = []
     for name, (fn, src, replaces) in KERNELS.items():
         r = rows[name]
-        extra = {k: r[k] for k in ("ms_launch_per_step", "per_op", "old_route_ms", "per_shape", "resident_threads", "shot") if k in r}
+        extra = {k: r[k] for k in ("ms_launch_per_step", "host_paced_ms", "host_paced_ms_launch_per_step",
+                                   "launch_floor_ms", "per_op", "old_route_ms", "per_shape", "resident_threads",
+                                   "shot") if k in r}
         if name in lane_wise:  # the elementwise kernel beside the new entry, under the same name
             extra["elementwise_kernel"] = {**lane_wise[name], "source": {
                 "K1": "battlezips_halo2_tpu_torch/csrc/field_ops.cu",
@@ -1148,7 +1143,7 @@ def main() -> int:
             "name": f"{name} {fn}", "route": "cuda", "source": f"battlezips_halo2_tpu_torch/{src}",
             "replaces": replaces, "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None, "shape": r["shape"], **extra,
+            "library_ms": r.get("library_ms"), "shape": r["shape"], **extra,
         })
     print(json.dumps({"kernels": kernels, "phases_s": timed.seconds, "row_configuration_launches": row_launches,
                       "session_launches": session_launches, "ops_per_s": OPS_PER_S,

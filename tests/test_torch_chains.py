@@ -175,3 +175,83 @@ def test_op_chain_raw_and_noop():
     assert torch.equal(L.op_chain("noop", SPEC, a, b, 7), a)
     with pytest.raises(ValueError):
         L.op_chain("mul32", SPEC, a, b)
+
+
+# ------------------------------------------------- host-side plans and timing
+
+
+@pytest.mark.parametrize(
+    "n, want", [(1, (32, 1)), (31, (32, 1)), (33, (32, 2)), (1 << 15, (128, 256)), ((1 << 15) + 1, (128, 257))]
+)
+def test_chain_grid_reaches_every_sm(n, want):
+    """K8's and K9's blocks: the largest power of two from 256 to 32 whose
+    blocks still reach all 132 SMs of an H100."""
+    from battlezips_halo2_tpu_torch.ops import cuda
+
+    block, grid = cuda.chain_grid(n, 132)
+    assert (block, grid) == want
+    assert grid == -(-n // block) and grid * block >= n > (grid - 1) * block
+    assert block & (block - 1) == 0 and 32 <= block <= 256
+    assert grid >= 132 or block == 32
+    assert block == 256 or -(-n // (2 * block)) < 132
+
+
+@pytest.mark.parametrize(
+    "steps, per, want",
+    [(5, None, [(0, 5)]), (5, 1, [(0, 1), (1, 2), (2, 3), (3, 4), (4, 5)]), (5, 2, [(0, 2), (2, 4), (4, 5)]),
+     (5, 7, [(0, 5)]), (0, None, []), (0, 1, [])],
+)
+def test_launch_ranges(steps, per, want):
+    assert C.launch_ranges(steps, per) == want
+
+
+def _head_case(kind: str, lanes: int, steps: int):
+    """Chain inputs with heads at step 0 only, at every step, or on random
+    steps, over identity lanes (P the identity, acc0 the identity)."""
+    acc0, pxy, heads, pts, acc_pts = _chain_case(lanes, steps, seed=11)
+    if kind == "head at step 0":
+        heads[:] = False
+        heads[0] = True
+    elif kind == "every head":
+        heads[:] = True
+    return acc0, pxy, heads, pts, acc_pts
+
+
+@pytest.mark.parametrize("per", [None, 1, 2, 4], ids=["one_launch", "per_step", "two_per_launch", "four_per_launch"])
+@pytest.mark.parametrize("kind", ["head at step 0", "every head", "random heads"])
+def test_step_chain_wrapper_on_cpu_against_host_law(kind, per):
+    """The K8 wrapper on CPU tensors over its launch ranges (5 steps: a
+    partial last range at 2 and 4 per launch) equals the host chain and the
+    plain chain in one piece; the in-place form updates acc itself."""
+    acc0, pxy, heads, pts, acc_pts = _head_case(kind, 40, 5)
+    want = C.plain_step_chain(SPEC, acc0, pxy, heads)
+    got = C.step_chain(SPEC, acc0, pxy, heads, steps_per_launch=per)
+    assert torch.equal(got, want)
+    assert C.jacobian_to_affine(SPEC, got) == _host_chain(pts, acc_pts, heads)
+    acc = acc0.clone()
+    assert C.step_chain_(SPEC, acc, pxy, heads, steps_per_launch=per) is acc
+    assert torch.equal(acc, want)
+    if kind == "every head":
+        assert torch.equal(got, C.lift_plain(SPEC, pxy))
+
+
+def _microbenchmark():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "tools" / "torch_exp_step_t.py"
+    spec = importlib.util.spec_from_file_location("torch_exp_step_t", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_device_paced_timing_raises_without_a_card(monkeypatch):
+    """The microbenchmark's timing times the card or nothing: without one it
+    raises before calling fn, rather than timing the CPU."""
+    micro = _microbenchmark()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = []
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        micro.device_paced_ms(lambda: calls.append(1), 3)
+    assert calls == []

@@ -241,6 +241,48 @@ def test_k9_op_chain(cuda, op):
         assert torch.equal(L.op_chain(op, spec, a, b, reps), L.plain_op_chain(op, spec, a, b, reps))
 
 
+def _edge_values(spec) -> list[int]:
+    """0, 1, p - 1, R mod p and values whose limbs are all ones below p
+    (2^(32 k) - 1, 2^254 - 1), then p - 2^(32 k)."""
+    p = spec.modulus
+    ones = [(1 << (32 * k)) - 1 for k in range(1, 8)] + [(1 << 254) - 1]
+    return [0, 1, p - 1, spec.r_mod_p, p - 2] + ones + [p - (1 << (32 * k)) for k in range(1, 8)]
+
+
+@pytest.mark.parametrize("spec", [L.FP_SPEC, L.FQ_SPEC], ids=["Fp", "Fq"])
+def test_carry_chain_product_at_edge_values(cuda, spec):
+    """K9's one-step chains run the carry-chain product, add, sub and
+    reduction: every pair of edge values, against mont_mul_plain and the
+    plain ops."""
+    edge = _edge_values(spec)
+    a = L.ints_to_limbs([x for x in edge for _ in edge], cuda)
+    b = L.ints_to_limbs([y for _ in edge for y in edge], cuda)
+    assert torch.equal(L.op_chain("mul", spec, a, b, 1), L.mont_mul_plain(spec, a, b))
+    for op in L.VALUED_CHAIN_OPS:
+        assert torch.equal(L.op_chain(op, spec, a, b, 1), L.plain_op_chain(op, spec, a, b, 1)), op
+
+
+@pytest.mark.parametrize("per", [None, 1], ids=["one_launch", "launch_per_step"])
+@pytest.mark.parametrize("lanes", [1, 31, 33, (1 << 15) + 1])
+def test_k8_step_chain_ragged_lanes(cuda, lanes, per):
+    acc0, pxy, heads = _chain_inputs(cuda, 64, 6, seed=lanes)
+    reps = -(-lanes // acc0.shape[0])
+    acc0, pxy = acc0.repeat(reps, 1, 1)[:lanes].contiguous(), pxy.repeat(reps, 1, 1)[:lanes].contiguous()
+    heads = heads.repeat(1, reps)[:, :lanes].contiguous()
+    got = C.step_chain(L.FQ_SPEC, acc0, pxy, heads, steps_per_launch=per)
+    assert torch.equal(got, C.plain_step_chain(L.FQ_SPEC, acc0, pxy, heads))
+
+
+@pytest.mark.parametrize("n", [33, (1 << 15) + 1])
+@pytest.mark.parametrize("op", list(L.CHAIN_OPS))
+def test_k9_op_chain_ragged(cuda, op, n):
+    rng = random.Random(n)
+    spec = L.FQ_SPEC
+    a, b = _field(rng, spec.modulus, n, cuda), _field(rng, spec.modulus, n, cuda)
+    for reps in (0, 1):
+        assert torch.equal(L.op_chain(op, spec, a, b, reps), L.plain_op_chain(op, spec, a, b, reps))
+
+
 @pytest.fixture
 def second_card(cuda):
     if torch.cuda.device_count() < 2:
