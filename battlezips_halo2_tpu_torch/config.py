@@ -9,9 +9,20 @@
 | BZ_ROW_MSM | row_msm | MSM buckets by the complete law (K7) only, window aggregation on K6 (coordinate planes) instead of K3 |
 | BZ_SESSION_WORKERS / BZ_SESSION_DP | session_workers / session_dp | api.prove_session threads (default 1) / data-parallel cards (first N) |
 | BZ_SESSION_BATCHED | session_batched | route sessions through the batch prover (plonk/batch_prover.py) |
-| BZ_BATCH_ENGINE | batch_engine | batch prover executor: auto / device (both the card path) / host (the native engine, not ported: raises) |
+| BZ_PROOF_ENGINE | proof_engine | device (default) / auto / host: where a proof's work runs (ops/engine.py) |
+| BZ_LATENCY_N_MAX | latency_n_max | under auto, domains of at most this many rows run on the native host engine (1 << 14) |
+| BZ_BATCH_ENGINE | batch_engine | batch prover executor: auto / device (both the card path; the proof tail follows BZ_PROOF_ENGINE) / host (the native engine end to end) |
 | BZ_BATCH_CHUNK / BZ_BATCH_QUOTIENT_CHUNK | batch_chunk / batch_quotient_chunk | columns per batched commit (256) / proofs per batched quotient (16) |
 | BZ_BATCH_TAIL_WORKERS | batch_tail_workers | threads for the per-proof evaluations + multiopen + IPA tail (1) |
+
+``BZ_PROOF_ENGINE`` deviates from the reference on purpose: the reference
+defaults to ``auto``, which runs every phase of a proof on a domain of at
+most ``latency_n_max`` rows (both game circuits, k = 11 and 12) in its
+native C++ engine (``native/``); the port's entry points run on the card
+unless the caller asks otherwise, so its default is ``device``, and
+``BZ_PROOF_ENGINE=auto`` gives the reference's routing exactly. Under
+``device`` the native library is never loaded, unless ``BZ_BATCH_ENGINE=host``
+asks for it.
 
 The two row flags select the port's counterparts of the reference's
 row-layout kernels (its ``BZ_PALLAS_NTT`` / ``BZ_PALLAS_MSM``). Both paths
@@ -24,8 +35,19 @@ import os
 from dataclasses import dataclass
 
 
+PROOF_ENGINES = ("device", "auto", "host")
+
+
 def _flag(name: str) -> bool:
     return os.environ.get(name, "") not in ("", "0")
+
+
+def _choice(name: str, choices: tuple) -> str:
+    """The variable's value, one of ``choices`` (unset: the first)."""
+    value = os.environ.get(name, "") or choices[0]
+    if value not in choices:
+        raise ValueError(f"{name} must be one of {choices}, got {value!r}")
+    return value
 
 
 @dataclass(frozen=True)
@@ -35,6 +57,8 @@ class FrameworkConfig:
     trace_verifier: bool = False
     row_ntt: bool = False
     row_msm: bool = False
+    proof_engine: str = "device"  # "device" | "auto" | "host"
+    latency_n_max: int = 1 << 14
     session_workers: int = 1
     session_dp: int | None = None
     session_batched: bool = False
@@ -51,6 +75,8 @@ class FrameworkConfig:
             trace_verifier=_flag("BZ_VERIFY_TRACE"),
             row_ntt=_flag("BZ_ROW_NTT"),
             row_msm=_flag("BZ_ROW_MSM"),
+            proof_engine=_choice("BZ_PROOF_ENGINE", PROOF_ENGINES),
+            latency_n_max=int(os.environ.get("BZ_LATENCY_N_MAX", str(1 << 14))),
             session_workers=int(os.environ.get("BZ_SESSION_WORKERS", "1")),
             session_dp=int(os.environ["BZ_SESSION_DP"]) if os.environ.get("BZ_SESSION_DP") else None,
             session_batched=_flag("BZ_SESSION_BATCHED"),

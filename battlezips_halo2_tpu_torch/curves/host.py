@@ -103,7 +103,15 @@ class Curve:
         return acc
 
     def pippenger(self, points, scalars, c: int = 8) -> Point:
-        """Host Pippenger in exact Python ints (test oracle for ops/msm.py)."""
+        """Host Pippenger in exact Python ints (test oracle for ops/msm.py),
+        on the native host engine when BZ_PROOF_ENGINE selects it."""
+        if len(points) >= 32:
+            from .. import native
+
+            if native.enabled():
+                # the native field is the COORDINATE field
+                return native.msm(native.which_for(self.base.modulus), points,
+                                  [s % self.scalar.modulus for s in scalars])
         n_windows = (256 + c - 1) // c
         mask = (1 << c) - 1
         acc: Point = None
@@ -138,6 +146,15 @@ class Curve:
 
     def from_bytes(self, data: bytes) -> Point:
         assert len(data) == 32
+        from .. import native
+
+        if native.enabled():
+            xy, status, bad = native.point_decompress(native.which_for(self.base.modulus), data)
+            if bad >= 0:
+                raise ValueError("invalid point encoding: x not on curve or not canonical")
+            if status[0] == 1:
+                return None
+            return int.from_bytes(xy[0, :32].tobytes(), "little"), int.from_bytes(xy[0, 32:].tobytes(), "little")
         buf = bytearray(data)
         ysign = (buf[31] >> 7) & 1
         buf[31] &= 0x7F

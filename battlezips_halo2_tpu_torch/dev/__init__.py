@@ -1,6 +1,5 @@
-"""Dev harness: MockProver and structured diagnostics, copied from the
-reference's dev/ (host Python, no tensors). The layout renderer
-(dev/layout.py) is not ported yet."""
+"""Dev harness: MockProver, structured diagnostics and the layout renderer,
+copied from the reference's dev/ (host Python, no tensors)."""
 
 from .failures import (
     CellNotAssigned,
@@ -14,10 +13,14 @@ from .failures import (
     RegionRef,
     VerifyFailure,
 )
+from .layout import circuit_layout, circuit_layout_svg, print_circuit_layout
 from .mock import MockProver
 
 __all__ = [
     "MockProver",
+    "circuit_layout",
+    "circuit_layout_svg",
+    "print_circuit_layout",
     "VerifyFailure",
     "CellNotAssigned",
     "ConstraintNotSatisfied",

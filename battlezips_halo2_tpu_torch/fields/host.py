@@ -74,8 +74,17 @@ class Field:
         return pow(a, -1, self.modulus)
 
     def batch_inv(self, xs: list[int]) -> list[int]:
-        """Montgomery's batch-inversion trick: one inversion for N elements."""
+        """Montgomery's batch-inversion trick: one inversion for N elements,
+        on the native host engine when BZ_PROOF_ENGINE selects it."""
         n = len(xs)
+        if n >= 64 and self.modulus in (P_PALLAS, Q_VESTA):
+            from .. import native
+
+            if native.enabled():
+                xs = [x % self.modulus for x in xs]
+                if not all(xs):
+                    raise ZeroDivisionError("inversion of zero field element")
+                return native.inv_batch(native.which_for(self.modulus), xs)
         prefix = [1] * (n + 1)
         for i, x in enumerate(xs):
             if x % self.modulus == 0:

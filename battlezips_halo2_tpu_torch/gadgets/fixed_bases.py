@@ -64,7 +64,15 @@ def find_z(ys: list[int], field=FP) -> int:
     """Smallest z making every y+z a QR and every -y+z a non-QR.
 
     Observed z values run to ~5*10^5 (reference board_commit tables), so
-    production tables read their z witnesses from gadgets/data/*.json."""
+    production tables read their z witnesses from gadgets/data/*.json.
+    When BZ_PROOF_ENGINE selects the native host engine the scan runs
+    there (OpenMP over candidates)."""
+    from .. import native
+
+    if field.modulus in (native.FP_MODULUS, native.FQ_MODULUS) and native.enabled():
+        z = native.find_z(native.which_for(field.modulus), [y % field.modulus for y in ys])
+        if z is not None:
+            return z
     z = 0
     while True:
         if all(field.is_square(y + z) and not field.is_square(field.neg(y) + z) for y in ys):

@@ -192,12 +192,23 @@ def sass_counts(lib: Path) -> dict[str, tuple[int, int, int]]:
     return counts
 
 
+def require_entries(lib: ctypes.CDLL, path) -> ctypes.CDLL:
+    """``lib`` if it has every entry of ``_SIGNATURES``; else raise naming
+    the entries it lacks."""
+    missing = [name for name in _SIGNATURES if not hasattr(lib, name)]
+    if missing:
+        raise RuntimeError(f"{path} lacks the kernel entries {missing}")
+    return lib
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use), which must have
+    every entry of ``_SIGNATURES``."""
     global _lib
     with _lock:
         if _lib is None:
-            _lib = load(build())
+            path = build()
+            _lib = require_entries(load(path), path)
     return _lib
 
 

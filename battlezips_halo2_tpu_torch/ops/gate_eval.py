@@ -278,8 +278,13 @@ def _emit_constraints(em: _VMEmitter, cs, usable: int, chunk_meta, lookups, gate
 def quotient_constants(vk) -> dict:
     """Per-pk quotient constants as int lists over the extended coset:
     l0 / llast / lactive Lagrange selectors, the coset x coordinates and
-    1/Z_H."""
+    1/Z_H; built on the native host engine (PolyInts) where BZ_PROOF_ENGINE
+    selects it."""
+    from .. import native
     from ..plonk.arguments import _lagrange_basis_extended
+
+    if native.enabled():
+        return _quotient_constants_native(vk)
 
     cs = vk.cs
     domain = vk.domain
@@ -300,6 +305,39 @@ def quotient_constants(vk) -> dict:
         acc = acc * domain.extended_omega % P
     t_inv = FP.batch_inv(domain.t_extended())
     return {"l0": l0, "llast": llast, "lactive": lactive, "x": xs, "t_inv": t_inv}
+
+
+def _quotient_constants_native(vk) -> dict:
+    """quotient_constants on the native host engine: the same values, with
+    l_i(X) = w^i t(X) / (n (X - w^i)) over the extended coset."""
+    from .. import native
+    from ..poly.polyints import PolyInts
+
+    domain = vk.domain
+    usable = vk.cs.usable_rows(domain.n)
+    ext, n = domain.extended_n, domain.n
+    which = native.which_for(P)
+    xs = np.zeros((1, ext, 32), np.uint8)  # g_coset * extended_omega^i
+    xs[:, :, 0] = 1
+    native.scale_batch(which, xs, domain.extended_omega, domain.g_coset)
+    xs = xs[0]
+    t = native.ints_to_bytes_arr(domain.t_extended())
+    zeros = np.zeros((ext, 32), np.uint8)
+
+    def basis_row(i: int):
+        wi = pow(domain.omega, i, P)
+        neg = np.broadcast_to(np.frombuffer((-n * wi % P).to_bytes(32, "little"), dtype=np.uint8), (ext, 32))
+        invs = native.inv_vec(which, native.axpy(which, xs, n, neg))  # 1 / (n x - n w^i)
+        return native.axpy(which, native.mul_vec(which, t, invs), wi, zeros)
+
+    acc = llast = basis_row(usable)
+    for i in range(usable + 1, n):
+        acc = native.axpy(which, basis_row(i), 1, acc)
+    ones = np.zeros((ext, 32), np.uint8)
+    ones[:, 0] = 1
+    lactive = native.axpy(which, acc, P - 1, ones)  # 1 - (llast + blind)
+    arrays = {"l0": basis_row(0), "llast": llast, "lactive": lactive, "x": xs, "t_inv": native.inv_vec(which, t)}
+    return {name: PolyInts.wrap(native.bytes_arr_to_ints(arr), arr) for name, arr in arrays.items()}
 
 
 def emit_vm(vk, schedule: ProofSchedule):

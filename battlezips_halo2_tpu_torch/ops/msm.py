@@ -32,7 +32,13 @@ For a batch of B scalar vectors over one table of N affine points:
    version is the reference's two-level running-sum decomposition over
    the complete Jacobian addition, one addition per step);
 5. the host converts the B x W window sums to affine and folds them,
-   sum_w 2^(c w) T_w (host_window_fold).
+   sum_w 2^(c w) T_w (host_window_fold; the native host engine's batched
+   fold where BZ_PROOF_ENGINE selects that engine).
+
+:func:`host_msm` is the native host engine's Pippenger; ``msm(...,
+host=True)`` takes it for the small MSMs the reference keeps on the host
+(the verifier's, when it runs on the native engine); the native IPA calls
+it directly. Under ``device`` they run on K7.
 
 This replaces the reference's lax.scan over lane runs, one launch per
 step, and its lane-boundary repair: here a thread walks its whole chunk in
@@ -516,6 +522,12 @@ def msm_many_table(curve: Curve, table, scalars, c: int | None = None, signed: b
         wsums, _ = msm_wsums(spec, table, scalars, c, signed, complete=True)
     w_count = wsums.shape[1]
     aff = C.jacobian_to_affine(spec, wsums)
+    b_count = len(aff) // w_count
+    if b_count > 1:
+        from .. import native
+
+        if native.enabled():
+            return native.window_fold_batch(native.which_for(curve.base.modulus), aff, b_count, w_count, c)
     return [host_window_fold(curve, aff[i : i + w_count], c) for i in range(0, len(aff), w_count)]
 
 
@@ -534,9 +546,22 @@ def msm_many(curve: Curve, points, scalars_list, device, c=None, signed=None) ->
     return msm_many_table(curve, table, scalars, c, signed)
 
 
-def msm(curve: Curve, points, scalars, device, c=None, signed=None):
+def host_msm(curve: Curve, points, scalars):
+    """The native host engine's Pippenger (``pasta_msm``: mixed affine bucket
+    additions, OpenMP over windows); None for no points."""
+    from .. import native
+
+    if not points:
+        return None
+    return native.msm(native.which_for(curve.base.modulus), list(points),
+                      [s % curve.scalar.modulus for s in scalars])
+
+
+def msm(curve: Curve, points, scalars, device, c=None, signed=None, host: bool = False):
     """Host-facing MSM: affine points (None = identity) x int scalars ->
-    affine result."""
+    affine result, on the device, or on :func:`host_msm` if ``host``."""
     if len(points) != len(scalars):
         raise ValueError(f"{len(points)} points but {len(scalars)} scalars")
+    if host:
+        return host_msm(curve, points, scalars)
     return msm_many(curve, points, [scalars], device, c, signed)[0]

@@ -10,7 +10,12 @@ SRS derivation follows halo2 0.2.0: hash_to_curve("Halo2-Parameters") on
 Vesta through the SSWU map of curves/hashtocurve.py.
 
 ``Params`` carries the device every commitment runs on; its G | W point
-table is uploaded once.
+table is uploaded once. On the native host engine (an explicit ``engine``,
+or ops/engine.py's routing of the domain) commitments are the native
+Pippenger over a cached G | W buffer; the prover's opening there is
+:func:`_create_open_proof_native`, with every vector as (n, 32) bytes, and
+the verifier's (``verify_open_proof``'s ``host``) takes the native
+s-vector and MSMs.
 """
 
 from __future__ import annotations
@@ -25,8 +30,10 @@ from ..curves.host import VESTA, Point
 from ..fields.host import FP
 from ..fields.limb import FieldSpec, NLIMBS, ints_to_limbs, limbs_to_ints
 from ..ops.cuda import resolve_device
-from ..ops.msm import msm, msm_many_table
+from ..ops.engine import use_host_engine
+from ..ops.msm import host_msm, msm, msm_many_table
 from ..plonk.transcript import TranscriptRead, TranscriptWrite
+from ..poly.polyints import PolyInts
 
 P = FP.modulus
 VESTA_BASE = FieldSpec.make(VESTA.base.modulus)
@@ -69,6 +76,55 @@ class Params:
         return self.gw_table()[: self.n]
 
 
+def _native_buffer(params: Params, name: str, points) -> bytes:
+    """A native MSM point buffer of the SRS, cached on ``params``: the
+    marshalling of 2^k points would cost more than the MSM."""
+    cache = params.__dict__.setdefault("_native_buffers", {})
+    if name not in cache:
+        from .. import native
+
+        cache[name] = native.points_buffer(points())
+    return cache[name]
+
+
+def _params_pbuf(params: Params) -> bytes:
+    """The [G | W] buffer of the native commitments."""
+    return _native_buffer(params, "gw", lambda: params.g + [params.w])
+
+
+def _host_commit_arr(params: Params, coeffs, blind: int) -> Point:
+    """<coeffs, G> + [blind] W on the native host engine for an (<= n, 32)
+    canonical-bytes coefficient array."""
+    from .. import native
+
+    assert coeffs.shape[0] <= params.n, "polynomial longer than the SRS"
+    sc = np.zeros((params.n + 1, 32), np.uint8)
+    sc[: coeffs.shape[0]] = coeffs
+    sc[params.n] = np.frombuffer((blind % P).to_bytes(32, "little"), dtype=np.uint8)
+    return native.msm_buf_scalars(native.which_for(VESTA.base.modulus), _params_pbuf(params), sc)
+
+
+def _host_commit_many(params: Params, polys: list, blinds: list) -> list[Point]:
+    from .. import native
+
+    points = []
+    for poly, blind in zip(polys, blinds):
+        pre = getattr(poly, "bytes_arr", None)
+        arr = pre if pre is not None else native.ints_to_bytes_arr([v % P for v in poly])
+        points.append(_host_commit_arr(params, arr, blind))
+    return points
+
+
+def _engine_host(engine: str | None, n: int) -> bool:
+    """Whether a commitment runs on the native host engine: ``engine``
+    "host" / "device", or None to let ops/engine.py route size n."""
+    if engine is None:
+        return use_host_engine(n)
+    if engine not in ("host", "device"):
+        raise ValueError(f"engine must be 'host' or 'device', got {engine!r}")
+    return engine == "host"
+
+
 def _commit_limbs(params: Params, coeffs: torch.Tensor, blinds: list) -> list[Point]:
     """<coeffs_i, G> + [blind_i] W for a (B, <= n, 8) canonical coefficient
     tensor: one batched device MSM over [G | W]."""
@@ -87,13 +143,18 @@ def _groups(count: int, chunk: int | None):
     return [(i, min(i + step, count)) for i in range(0, count, step)]
 
 
-def commit_many(params: Params, polys: list, blinds: list, chunk: int | None = None) -> list[Point]:
+def commit_many(params: Params, polys: list, blinds: list, chunk: int | None = None,
+                engine: str | None = None) -> list[Point]:
     """Commit a batch of coefficient polynomials (each <= n long), ``chunk``
-    of them per batched device MSM (None: all at once)."""
+    of them per batched device MSM (None: all at once), or one native MSM
+    each on the host engine (``engine``: "host" / "device", None routes by
+    ops/engine.py)."""
     assert len(polys) == len(blinds)
     if not polys:
         return []
     assert all(len(p) <= params.n for p in polys)
+    if _engine_host(engine, params.n):
+        return _host_commit_many(params, polys, blinds)
     points = []
     for a, b in _groups(len(polys), chunk):
         flat = []
@@ -109,11 +170,14 @@ def commit(params: Params, coeffs: list[int], blind: int) -> Point:
     return commit_many(params, [coeffs], [blind])[0]
 
 
-def commit_lagrange_many(params: Params, domain, values_list: list, blinds: list, chunk: int | None = None):
+def commit_lagrange_many(params: Params, domain, values_list: list, blinds: list, chunk: int | None = None,
+                         engine: str | None = None):
     """Lagrange columns -> (coefficient polys, commitments): per group of
     ``chunk`` columns (None: all at once) the iNTT and the commitment MSMs
     run on the device in one pass, and the coefficients come back to the
-    host once."""
+    host once. On the native host engine (``engine`` as in commit_many)
+    the batch iNTT feeds the native Pippenger in bytes, and the polys are
+    PolyInts."""
     from ..poly.transforms import lagrange_to_coeff_limbs
 
     assert len(values_list) == len(blinds)
@@ -121,6 +185,17 @@ def commit_lagrange_many(params: Params, domain, values_list: list, blinds: list
         return [], []
     n = domain.n
     assert all(len(v) == n for v in values_list)
+    if _engine_host(engine, n):
+        from .. import native
+
+        which = native.which_for(P)
+        data = np.zeros((len(values_list), n, 32), np.uint8)
+        for i, col in enumerate(values_list):
+            data[i] = native.ints_to_bytes_arr([v % P for v in col])
+        native.ntt_batch(which, data, pow(domain.omega, -1, P))
+        native.scale_batch(which, data, 1, pow(n, -1, P))
+        points = [_host_commit_arr(params, row, blind) for row, blind in zip(data, blinds)]
+        return [PolyInts.wrap(native.bytes_arr_to_ints(row), row) for row in data], points
     polys, points = [], []
     for a, b in _groups(len(values_list), chunk):
         flat = [x % P for v in values_list[a:b] for x in v]
@@ -149,11 +224,11 @@ def lagrange_basis_commitment(params: Params, domain, row: int) -> Point:
     return cache[row]
 
 
-def commit_lagrange_sparse(params: Params, domain, values: list) -> Point:
+def commit_lagrange_sparse(params: Params, domain, values: list, host: bool) -> Point:
     """Commitment of a Lagrange-basis column with blind 0, as
     sum_{v_i != 0} [v_i] G_lag_i: the same group element as
-    commit(lagrange_to_coeff(values), 0). Callers gate on a small nonzero
-    count."""
+    commit(lagrange_to_coeff(values), 0), its MSM on the native host engine
+    if ``host``. Callers gate on a small nonzero count."""
     points, scalars = [], []
     for i, v in enumerate(values):
         if v % P:
@@ -161,7 +236,86 @@ def commit_lagrange_sparse(params: Params, domain, values: list) -> Point:
             scalars.append(v % P)
     if not points:
         return None
-    return msm(VESTA, points, scalars, params.device)
+    return msm(VESTA, points, scalars, params.device, host=host)
+
+
+def _create_open_proof_native(params: Params, transcript: TranscriptWrite, coeffs_arr, blind: int, x: int, rng):
+    """create_open_proof on the native host engine: the same rounds, rng
+    draws and transcript, with the polynomial, b and the G coefficients
+    held as (n, 32) canonical-bytes arrays and every vector op, MSM
+    included, native. ``coeffs_arr``: the (<= n, 32) polynomial."""
+    from .. import native
+
+    m = P
+    n = params.n
+    which = native.which_for(m)
+    which_pt = native.which_for(VESTA.base.modulus)
+    gbuf = _native_buffer(params, "g", lambda: params.g)
+
+    def row_int(arr, i):
+        return int.from_bytes(arr[i].tobytes(), "little")
+
+    def set_row(arr, i, v):
+        arr[i] = np.frombuffer((v % m).to_bytes(32, "little"), dtype=np.uint8)
+
+    p_prime = np.zeros((n, 32), np.uint8)
+    p_prime[: coeffs_arr.shape[0]] = coeffs_arr[:n]
+    b = np.zeros((1, n, 32), np.uint8)  # (1, x, x^2, ...): ones scaled by powers of x
+    b[:, :, 0] = 1
+    native.scale_batch(which, b, x, 1)
+    b = b[0]
+
+    s_ints = [FP.random(rng) for _ in range(n)]
+    s_arr = native.ints_to_bytes_arr(s_ints)
+    set_row(s_arr, 0, s_ints[0] - native.horner(which, s_arr, x))
+    s_blind = FP.random(rng)
+    transcript.write_point(_host_commit_arr(params, s_arr, s_blind))
+
+    xi = transcript.squeeze_challenge()
+    z = transcript.squeeze_challenge()
+
+    p_prime = native.axpy(which, s_arr, xi, p_prime)  # xi S + P
+    v = native.inner(which, p_prime, b)  # p'(x) before the shift
+    set_row(p_prime, 0, row_int(p_prime, 0) - v)
+    f = (blind + xi * s_blind) % m
+
+    c_coeff = np.zeros((n, 32), np.uint8)
+    c_coeff[:, 0] = 1
+    zeros = np.zeros((n, 32), np.uint8)
+    pos = np.arange(n)
+    length = n
+    while length > 1:
+        half = length // 2
+        p_lo, p_hi = p_prime[:half], p_prime[half:length]
+        b_lo, b_hi = b[:half], b[half:length]
+
+        l_rand = FP.random(rng)
+        r_rand = FP.random(rng)
+        value_l = native.inner(which, p_hi, b_lo)
+        value_r = native.inner(which, p_lo, b_hi)
+
+        hi_mask = pos >= half
+        v_l = native.mul_vec(which, c_coeff, p_prime[np.where(~hi_mask, pos + half, 0)])
+        v_r = native.mul_vec(which, c_coeff, p_prime[np.where(hi_mask, pos - half, 0)])
+        v_l[hi_mask] = 0
+        v_r[~hi_mask] = 0
+        base_l = native.msm_buf_scalars(which_pt, gbuf, v_l)
+        base_r = native.msm_buf_scalars(which_pt, gbuf, v_r)
+        uw = [params.u, params.w]
+        transcript.write_point(host_msm(VESTA, [base_l] + uw, [1, value_l * z % m, l_rand]))
+        transcript.write_point(host_msm(VESTA, [base_r] + uw, [1, value_r * z % m, r_rand]))
+        u = transcript.squeeze_challenge_nonzero()
+        u_inv = FP.inv(u)
+
+        p_prime = native.axpy(which, p_hi, u_inv, p_lo)
+        b = native.axpy(which, b_hi, u, b_lo)
+        c_coeff = np.where(hi_mask[:, None], native.axpy(which, c_coeff, u, zeros), c_coeff)
+        pos = np.where(hi_mask, pos - half, pos)
+        f = (f + u_inv * l_rand + u * r_rand) % m
+        length = half
+
+    transcript.write_scalar(row_int(p_prime, 0))
+    transcript.write_scalar(f)
 
 
 def create_open_proof(
@@ -190,7 +344,9 @@ def create_open_proof(
     The folded G' is never materialised: each folded entry is a u-power
     product of original G points, so every round's L / R point parts are
     one batched device MSM over the ORIGINAL G with composite scalars
-    (c = accumulated u-powers, pos = current fold position)."""
+    (c = accumulated u-powers, pos = current fold position). This is the
+    device engine's opening; the native host engine's is
+    :func:`_create_open_proof_native`."""
     m = P
     n = params.n
     p_prime = np.zeros(n, dtype=object)
@@ -265,9 +421,11 @@ def verify_open_proof(
     commitment: Point,
     x: int,
     value: int,
+    host: bool,
 ) -> bool:
-    """Verify an opening; one n-point device MSM for G_final plus O(log n)
-    point terms.
+    """Verify an opening; one n-point MSM for G_final plus O(log n) point
+    terms, on the device, or with the s-vector and both MSMs on the native
+    host engine if ``host``.
 
     halo2 0.2.0 structure (poly/commitment/verifier.rs): read S, squeeze
     xi and z, read k (L, R, u_j) rounds, then check
@@ -297,19 +455,28 @@ def verify_open_proof(
         b_final = b_final * ((1 + u * pow(x, half, m)) % m) % m
         half //= 2
 
-    s = np.ones(n, dtype=object)
-    idx = np.arange(n)
-    half = n // 2
-    for u in us:
-        s = np.where((idx & half).astype(bool), s * u % m, s)
-        half //= 2
-    lhs_scalars = [int(v) for v in a0 * s % m] + [a0 * b_final % m * z % m, f_final]
-    lhs = msm(VESTA, params.g + [params.u, params.w], lhs_scalars, params.device)
+    if host:
+        from .. import native
+
+        sc = np.empty((n + 2, 32), np.uint8)
+        sc[:n] = native.ipa_s_vector(native.which_for(m), us, a0, n)
+        sc[n:] = native.ints_to_bytes_arr([a0 * b_final % m * z % m, f_final % m])
+        guw = _native_buffer(params, "guw", lambda: params.g + [params.u, params.w])
+        lhs = native.msm_buf_scalars(native.which_for(VESTA.base.modulus), guw, sc)
+    else:
+        s = np.ones(n, dtype=object)
+        idx = np.arange(n)
+        half = n // 2
+        for u in us:
+            s = np.where((idx & half).astype(bool), s * u % m, s)
+            half //= 2
+        lhs_scalars = [int(v) for v in a0 * s % m] + [a0 * b_final % m * z % m, f_final]
+        lhs = msm(VESTA, params.g + [params.u, params.w], lhs_scalars, params.device)
 
     rhs_pts = [commitment, params.g[0], s_commitment]
     rhs_scalars = [1, (-value) % m, xi]
     for L, R, u in zip(ls, rs, us):
         rhs_pts += [L, R]
         rhs_scalars += [FP.inv(u), u]
-    rhs = msm(VESTA, rhs_pts, rhs_scalars, params.device)
+    rhs = msm(VESTA, rhs_pts, rhs_scalars, params.device, host=host)
     return lhs == rhs

@@ -9,7 +9,13 @@ Horner_x4(f, q_0, ..., q_{K-1}) at x3 closes the argument (halo2 0.2.0
 poly/multiopen.rs fold directions).
 
 Prover and verifier MUST build their query lists in the same canonical
-order (plonk/prover.py and plonk/verifier.py share the schedule)."""
+order (plonk/prover.py and plonk/verifier.py share the schedule).
+
+On the native host engine (``host``) the prover holds every polynomial as
+an (n, 32) canonical-bytes array and runs the folds, divisions,
+evaluations, commitment and IPA natively (:func:`_multiopen_prove_native`):
+the same field ops in the same order, so the same bytes; the verifier runs
+its MSMs there."""
 
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ from ..poly.domain import eval_poly_coeffs
 from ..poly.lagrange import lagrange_interpolate
 from ..plonk.transcript import TranscriptRead, TranscriptWrite
 from ..ops.msm import msm
-from .ipa import Params, commit, create_open_proof, verify_open_proof
+from .ipa import Params, _create_open_proof_native, _host_commit_arr, commit, create_open_proof, verify_open_proof
 
 P = FP.modulus
 
@@ -96,11 +102,80 @@ def _poly_divide_linear(poly: list[int], point: int) -> list[int]:
     return out
 
 
-def multiopen_prove(params: Params, transcript: TranscriptWrite, queries: list[Query], rng):
+def _multiopen_prove_native(params: Params, transcript: TranscriptWrite, queries: list[Query], rng):
+    """multiopen_prove on the native host engine: the same folds, commitment
+    and opening, with every polynomial an (n, 32) canonical-bytes array
+    (a PolyInts query brings its own) and pasta_axpy / pasta_div_linear /
+    pasta_horner doing the work."""
+    from .. import native
+
+    which = native.which_for(P)
+    x1 = transcript.squeeze_challenge()
+    x2 = transcript.squeeze_challenge()
+    _, by_poly, set_order, sets = _group(queries, key_fn=lambda q: id(q.poly))
+
+    width = params.n
+    arrs: dict = {}
+
+    def poly_arr(k):
+        if k not in arrs:
+            poly = by_poly[k]["queries"][0].poly
+            assert len(poly) <= width, "poly exceeds the SRS size"
+            a = np.zeros((width, 32), np.uint8)
+            pre = getattr(poly, "bytes_arr", None)
+            a[: len(poly)] = pre if pre is not None else native.ints_to_bytes_arr([v % P for v in poly])
+            arrs[k] = a
+        return arrs[k]
+
+    q_arrs, q_blinds, q_evals = [], [], []
+    for pts in set_order:
+        acc = np.zeros((width, 32), np.uint8)
+        blind_acc = 0
+        evals = {p: 0 for p in pts}
+        for k in sets[pts]:
+            info = by_poly[k]
+            acc = native.axpy(which, acc, x1, poly_arr(k))
+            blind_acc = (blind_acc * x1 + info["queries"][0].blind) % P
+            ev_by_point = {q.point: q.eval for q in info["queries"]}
+            for p in pts:
+                evals[p] = (evals[p] * x1 + ev_by_point[p]) % P
+        q_arrs.append(acc)
+        q_blinds.append(blind_acc)
+        q_evals.append(evals)
+
+    f_acc = np.zeros((width, 32), np.uint8)
+    for pts, qa, qe in zip(set_order, q_arrs, q_evals):
+        r = lagrange_interpolate(list(pts), [qe[p] for p in pts])
+        r_arr = np.zeros((width, 32), np.uint8)
+        r_arr[: len(r)] = native.ints_to_bytes_arr([v % P for v in r])
+        quotient = native.axpy(which, r_arr, P - 1, qa)  # qa - r
+        for p in pts:
+            assert native.div_linear(which, quotient, p) == 0, "non-zero remainder in multiopen division"
+        f_acc = native.axpy(which, f_acc, x2, quotient)
+
+    f_blind = FP.random(rng)
+    transcript.write_point(_host_commit_arr(params, f_acc, f_blind))
+    x3 = transcript.squeeze_challenge()
+
+    for qa in q_arrs:
+        transcript.write_scalar(native.horner(which, qa, x3))
+    x4 = transcript.squeeze_challenge()
+
+    final_acc, final_blind = f_acc, f_blind
+    for qa, qb in zip(q_arrs, q_blinds):
+        final_acc = native.axpy(which, final_acc, x4, qa)
+        final_blind = (final_blind * x4 + qb) % P
+    _create_open_proof_native(params, transcript, final_acc, final_blind, x3, rng)
+
+
+def multiopen_prove(params: Params, transcript: TranscriptWrite, queries: list[Query], rng, host: bool):
     """halo2 0.2.0 structure (poly/multiopen.rs create_proof): x1 and x2
     squeezed back-to-back; ALL combinations are Horner folds in query order
     (q_poly = fold acc·x1 + poly; f = fold acc·x2 + quotient; final
-    p = f then fold acc·x4 + q_i)."""
+    p = f then fold acc·x4 + q_i). ``host``: run it on the native host
+    engine."""
+    if host:
+        return _multiopen_prove_native(params, transcript, queries, rng)
     x1 = transcript.squeeze_challenge()
     x2 = transcript.squeeze_challenge()
     _, by_poly, set_order, sets = _group(queries, key_fn=lambda q: id(q.poly))
@@ -164,8 +239,9 @@ def multiopen_prove(params: Params, transcript: TranscriptWrite, queries: list[Q
     create_open_proof(params, transcript, final_poly, final_blind, x3, rng)
 
 
-def multiopen_verify(params: Params, transcript: TranscriptRead, queries: list[VerifierQuery]) -> bool:
-    """Mirror of multiopen_prove's Horner folds on commitments/evals."""
+def multiopen_verify(params: Params, transcript: TranscriptRead, queries: list[VerifierQuery], host: bool) -> bool:
+    """Mirror of multiopen_prove's Horner folds on commitments/evals; its
+    MSMs on the native host engine if ``host``."""
     x1 = transcript.squeeze_challenge()
     x2 = transcript.squeeze_challenge()
     _, by_poly, set_order, sets = _group(queries, key_fn=lambda q: q.name)
@@ -213,5 +289,5 @@ def multiopen_verify(params: Params, transcript: TranscriptRead, queries: list[V
             pts_scalars.append((c, s * mult % P))
         expected_value = (expected_value + mult * qv) % P
 
-    acc = msm(VESTA, [c for c, _ in pts_scalars], [s for _, s in pts_scalars], params.device)
-    return verify_open_proof(params, transcript, acc, x3, expected_value)
+    acc = msm(VESTA, [c for c, _ in pts_scalars], [s for _, s in pts_scalars], params.device, host=host)
+    return verify_open_proof(params, transcript, acc, x3, expected_value, host)

@@ -16,9 +16,20 @@ Each proof's transcript, rng draw order and field ops are its own, so
 proof i is bit-identical to ``create_proof`` with the same rng, and to the
 reference's: only the scheduling of device work depends on the batch.
 
-Engines (``engine`` argument, default ``BZ_BATCH_ENGINE``): ``device`` and
-``auto`` run the device path above; ``host``, the native C++ engine of the
-reference, is not ported (ROADMAP queue 1 item 5) and raises.
+Engines (``engine`` argument, default ``BZ_BATCH_ENGINE``):
+
+* ``device`` (and ``auto``: the card is the port's accelerator) runs the
+  commitments and the quotient on the card as above; the tail (evaluations,
+  grand products, multiopen, IPA) runs on the native host engine where
+  BZ_PROOF_ENGINE selects it (``auto`` / ``host``: the reference's hybrid),
+  else in Python ints with the IPA's MSMs on the card;
+* ``host`` runs every phase on the native host engine (``native/``), still
+  phase by phase; it raises if the library does not build.
+
+For the native tail every polynomial carries its bytes (PolyInts), and the
+fixed and sigma polynomials are wrapped once per proving key, so that they
+are the same objects in every proof: the multiopen groups queries by
+object identity.
 """
 
 from __future__ import annotations
@@ -28,18 +39,20 @@ import time
 
 import numpy as np
 
+from .. import native
 from ..config import config as _config
 from ..curves.host import VESTA
 from ..fields.host import FP
 from ..pcs.ipa import Params, commit_lagrange_many, commit_many
 from ..pcs.multiopen import Query, multiopen_prove
 from ..poly.domain import eval_poly_coeffs
+from ..poly.polyints import PolyInts
 from .arguments import ProofSchedule, evaluate_expression, permute_lookup_inputs
 from .assignment import Assignment, Layouter
 from .circuit import ConstraintSystem
 from .expression import ColumnType
 from .keys import DELTA, ProvingKey
-from .prover import _configure_cached, _grand_product_prefix, _obj_array
+from .prover import _configure_cached, _get_native_quotient_evaluator, _grand_product_prefix, _obj_array
 from .transcript import TranscriptWrite
 
 P = FP.modulus
@@ -49,16 +62,31 @@ _evaluator_lock = threading.Lock()
 
 def _batch_engine(explicit: str | None) -> str:
     """The engine a batch runs on: ``device`` for auto and device; ``host``
-    raises NotImplementedError (the native engine is not ported)."""
+    once the native library is built and loaded (a failed build raises)."""
     engine = _config().batch_engine if explicit is None else explicit
     if engine not in ENGINES:
         raise ValueError(f"batch engine must be one of {ENGINES}, got {engine!r}")
     if engine == "host":
-        raise NotImplementedError(
-            "batch engine 'host' is the reference's native C++ engine (csrc/pasta.cpp), "
-            "which this package does not port yet (ROADMAP queue 1 item 5); use 'device' or 'auto'"
-        )
+        native.load()
+        return "host"
     return "device"
+
+
+def _wrap_native(poly):
+    """The poly as PolyInts carrying its bytes, for the native tail."""
+    if getattr(poly, "bytes_arr", None) is not None:
+        return poly
+    ints = [v % P for v in poly]
+    return PolyInts.wrap(ints, native.ints_to_bytes_arr(ints))
+
+
+def _wrapped_once(pk, name: str, polys: list) -> list:
+    """``polys`` wrapped by _wrap_native, once per proving key: every proof
+    then queries the same objects."""
+    cache = pk.__dict__.setdefault("_native_wrapped", {})
+    if name not in cache:
+        cache[name] = [_wrap_native(p) for p in polys]
+    return cache[name]
 
 
 def _get_quotient_evaluator(vk, schedule, device):
@@ -94,6 +122,10 @@ def create_proofs_batched(
     engine = _batch_engine(engine)
     if not circuits:
         return []
+    # the tail (grand products, evaluations, multiopen, IPA) runs natively
+    # under the host engine, and where BZ_PROOF_ENGINE selects it
+    tail_host = engine == "host" or native.enabled()
+    wrap = _wrap_native if tail_host else (lambda poly: poly)
     cfg = _config()
     vk = pk.vk
     cs: ConstraintSystem = vk.cs
@@ -130,11 +162,12 @@ def create_proofs_batched(
             s.instance_values.append([v % P for v in vals] + [0] * (n - len(vals)))
         all_instance_cols.extend(s.instance_values)
 
-    polys, points = commit_lagrange_many(params, domain, all_instance_cols, [0] * len(all_instance_cols), chunk)
+    polys, points = commit_lagrange_many(params, domain, all_instance_cols, [0] * len(all_instance_cols), chunk,
+                                         engine=engine)
     off = 0
     for s in states:
         k = len(s.instance_values)
-        s.instance_polys = polys[off : off + k]
+        s.instance_polys = [wrap(p) for p in polys[off : off + k]]
         for point in points[off : off + k]:
             s.transcript.common_point(point)
         off += k
@@ -160,11 +193,11 @@ def create_proofs_batched(
         all_advice_blinds.extend(s.advice_blinds)
     mark("witness synthesis")
 
-    polys, points = commit_lagrange_many(params, domain, all_advice_cols, all_advice_blinds, chunk)
+    polys, points = commit_lagrange_many(params, domain, all_advice_cols, all_advice_blinds, chunk, engine=engine)
     off = 0
     for s in states:
         k = len(s.advice_values)
-        s.advice_polys = polys[off : off + k]
+        s.advice_polys = [wrap(p) for p in polys[off : off + k]]
         for point in points[off : off + k]:
             s.transcript.write_point(point)
         off += k
@@ -215,7 +248,8 @@ def create_proofs_batched(
             all_lookup_blinds.extend(FP.random(s.rng) for _ in range(2 * len(s.lookups)))
     mark("lookup permute")
 
-    flat, points = commit_lagrange_many(params, domain, all_lookup_cols, all_lookup_blinds, chunk)
+    flat, points = commit_lagrange_many(params, domain, all_lookup_cols, all_lookup_blinds, chunk, engine=engine)
+    flat = [wrap(p) for p in flat]
     off = 0
     for s in states:
         s.lookup_perm_polys = []
@@ -265,7 +299,7 @@ def create_proofs_batched(
                 nums = nums * ((v + delta_beta * w_pows + s.gamma) % P) % P
                 dens = dens * ((v + s.beta * sig + s.gamma) % P) % P
             z = [0] * n
-            z[: usable + 1] = _grand_product_prefix(nums, dens, carry)
+            z[: usable + 1] = _grand_product_prefix(nums, dens, carry, host=tail_host)
             carry = z[usable]
             for row in range(usable + 1, n):
                 z[row] = FP.random(s.rng)
@@ -281,7 +315,7 @@ def create_proofs_batched(
             nums = (a_c + s.beta) * (s_c + s.gamma) % P
             dens = (a_p + s.beta) * (s_p + s.gamma) % P
             z = [0] * n
-            z[: usable + 1] = _grand_product_prefix(nums, dens, 1)
+            z[: usable + 1] = _grand_product_prefix(nums, dens, 1, host=tail_host)
             for row in range(usable + 1, n):
                 z[row] = FP.random(s.rng)
             s.lookup_z_values.append(z)
@@ -296,8 +330,9 @@ def create_proofs_batched(
         all_random_blinds.append(s.random_blind)
     mark("grand products")
 
-    z_polys, z_points = commit_lagrange_many(params, domain, all_z_cols, all_z_blinds, chunk)
-    random_points = commit_many(params, all_random_polys, all_random_blinds, chunk)
+    z_polys, z_points = commit_lagrange_many(params, domain, all_z_cols, all_z_blinds, chunk, engine=engine)
+    z_polys = [wrap(p) for p in z_polys]
+    random_points = commit_many(params, all_random_polys, all_random_blinds, chunk, engine=engine)
     off = 0
     for s, random_point in zip(states, random_points):
         k = len(s.perm_z_values)
@@ -315,6 +350,9 @@ def create_proofs_batched(
     mark("z commit")
 
     # --- phase 4: quotients -------------------------------------------------
+    fixed_polys = _wrapped_once(pk, "fixed", fixed_polys) if tail_host else fixed_polys
+    sigma_polys = _wrapped_once(pk, "sigma", perm.sigma_polys) if tail_host else perm.sigma_polys
+
     def polys_by_key(s):
         out = {}
         for i, poly in enumerate(s.advice_polys):
@@ -325,7 +363,7 @@ def create_proofs_batched(
             out[("instance", i)] = poly
         for i, poly in enumerate(s.perm_z_polys):
             out[("perm_z", i)] = poly
-        for i, poly in enumerate(perm.sigma_polys):
+        for i, poly in enumerate(sigma_polys):
             out[("sigma", i)] = poly
         for i, (a_poly, _, s_poly, _) in enumerate(s.lookup_perm_polys):
             out[("lk_a", i)] = a_poly
@@ -334,13 +372,18 @@ def create_proofs_batched(
             out[("lk_z", i)] = z_poly
         return out
 
-    evaluator = _get_quotient_evaluator(vk, schedule, params.device)
-    qchunk = cfg.batch_quotient_chunk
-    for start in range(0, len(states), qchunk):
-        group = states[start : start + qchunk]
-        hs = evaluator([polys_by_key(s) for s in group], [(s.theta, s.beta, s.gamma, s.y) for s in group])
-        for s, h in zip(group, hs):
-            s.h_coeffs = h
+    if engine == "host":
+        evaluator = _get_native_quotient_evaluator(vk, schedule)
+        for s in states:
+            s.h_coeffs = evaluator(polys_by_key(s), (s.theta, s.beta, s.gamma, s.y))
+    else:
+        evaluator = _get_quotient_evaluator(vk, schedule, params.device)
+        qchunk = cfg.batch_quotient_chunk
+        for start in range(0, len(states), qchunk):
+            group = states[start : start + qchunk]
+            hs = evaluator([polys_by_key(s) for s in group], [(s.theta, s.beta, s.gamma, s.y) for s in group])
+            for s, h in zip(group, hs):
+                s.h_coeffs = h
     mark("quotient")
 
     num_pieces = domain.extended_n // n
@@ -351,7 +394,7 @@ def create_proofs_batched(
         s.h_blinds = [FP.random(s.rng) for _ in s.h_pieces]
         all_h_pieces.extend(s.h_pieces)
         all_h_blinds.extend(s.h_blinds)
-    h_points = commit_many(params, all_h_pieces, all_h_blinds, chunk)
+    h_points = commit_many(params, all_h_pieces, all_h_blinds, chunk, engine=engine)
     off = 0
     for s in states:
         for point in h_points[off : off + num_pieces]:
@@ -366,7 +409,7 @@ def create_proofs_batched(
         from concurrent.futures import ThreadPoolExecutor
 
         def tail(s):
-            _proof_tail(params, pk, schedule, s, usable)
+            _proof_tail(params, pk, schedule, s, usable, fixed_polys, sigma_polys, tail_host)
             return s.transcript.finalize()
 
         with ThreadPoolExecutor(max_workers=workers) as pool:
@@ -375,25 +418,26 @@ def create_proofs_batched(
         return proofs
     proofs = []
     for s in states:
-        _proof_tail(params, pk, schedule, s, usable, mark)
+        _proof_tail(params, pk, schedule, s, usable, fixed_polys, sigma_polys, tail_host, mark)
         proofs.append(s.transcript.finalize())
     return proofs
 
 
-def _proof_tail(params, pk, schedule, s, usable: int, mark=lambda name: None):
-    """Evaluations at x, multiopen and IPA of one proof of a batch. ``s``
-    holds the proof's transcript, rng, x, polynomials and blinds. The
-    multiopen groups polynomials by object identity: the fixed and sigma
-    polynomials are the proving key's own objects, shared by every proof,
-    so a proof in a batch groups, and so writes, exactly as one alone.
-    ``mark`` closes a trace span."""
+def _proof_tail(params, pk, schedule, s, usable: int, fixed_polys, sigma_polys, host: bool,
+                mark=lambda name: None):
+    """Evaluations at x, multiopen and IPA of one proof of a batch, on the
+    native host engine if ``host`` (the polynomials are then PolyInts,
+    which eval_poly_coeffs evaluates there). ``s`` holds the proof's
+    transcript, rng, x, polynomials and blinds. The multiopen groups
+    polynomials by object identity: ``fixed_polys`` and ``sigma_polys`` are
+    the proving key's (or their wrapped copies, made once per key), shared
+    by every proof, so a proof in a batch groups, and so writes, exactly as
+    one alone. ``mark`` closes a trace span."""
     vk = pk.vk
     domain = vk.domain
     n = params.n
     x = s.x
     transcript = s.transcript
-    fixed_polys = pk.fixed_polys
-    sigma_polys = vk.permutation.sigma_polys
 
     # --- evaluations (halo2 0.2.0 write order: instance, advice, fixed,
     # vanishing random_eval, sigmas, permutation z sets, lookups) -----------
@@ -495,5 +539,5 @@ def _proof_tail(params, pk, schedule, s, usable: int, mark=lambda name: None):
     queries.append(Query(s.random_poly, s.random_blind, x, random_eval))
 
     mark("query build")
-    multiopen_prove(params, transcript, queries, s.rng)
+    multiopen_prove(params, transcript, queries, s.rng, host=host)
     mark("multiopen+ipa")

@@ -3,11 +3,13 @@
 Framework analog of ``halo2_proofs::plonk::verify_proof`` + SingleVerifier
 (SURVEY.md §2.2 "Verifier"): transcript replay, instance commitment
 recomputation, the gate/permutation/lookup identity check at the challenge
-point, and the multiopen + IPA verification (MSM-dominated).
+point, and the multiopen + IPA verification (MSM-dominated). The engine of
+the MSMs is decided once per proof and passed down.
 """
 
 from __future__ import annotations
 
+from .. import native
 from ..config import config as _config
 from ..curves.host import VESTA
 from ..fields.host import FP
@@ -49,6 +51,9 @@ def _verify_proof(params: Params, vk: VerifyingKey, proof: bytes, instances: lis
     schedule = ProofSchedule.build(cs)
     transcript = TranscriptRead(VESTA, proof)
     transcript.common_scalar(vk.digest)
+    # the small MSMs and the IPA check run on the native host engine wherever
+    # BZ_PROOF_ENGINE selects it (auto, host), at any size, as the reference's do
+    host = native.enabled()
 
     # --- instance commitments ----------------------------------------------
     instance_values = []
@@ -65,7 +70,7 @@ def _verify_proof(params: Params, vk: VerifyingKey, proof: bytes, instances: lis
     for vals in instance_values:
         nnz = sum(1 for v in vals if v % P)
         if nnz <= 16:
-            instance_commitments.append(commit_lagrange_sparse(params, domain, vals))
+            instance_commitments.append(commit_lagrange_sparse(params, domain, vals, host))
         else:
             poly = batch_lagrange_to_coeff(domain, [vals], params.device)[0]
             instance_commitments.append(commit(params, poly, 0))
@@ -180,7 +185,7 @@ def _verify_proof(params: Params, vk: VerifyingKey, proof: bytes, instances: lis
     xni = [1] * len(h_commitments)
     for i in range(1, len(h_commitments)):
         xni[i] = xni[i - 1] * xn % P
-    h_collapsed_commitment = msm(VESTA, h_commitments, xni, params.device)
+    h_collapsed_commitment = msm(VESTA, h_commitments, xni, params.device, host=host)
     if _config().trace_verifier:
         print(f"[verify] expected h(x) = {hex(expected_h_eval)} (identity failures surface as multiopen failures)", flush=True)
 
@@ -221,7 +226,7 @@ def _verify_proof(params: Params, vk: VerifyingKey, proof: bytes, instances: lis
     queries.append(VerifierQuery(("h",), h_collapsed_commitment, x, expected_h_eval))
     queries.append(VerifierQuery(("random",), random_commitment, x, random_eval))
 
-    if not multiopen_verify(params, transcript, queries):
+    if not multiopen_verify(params, transcript, queries, host):
         if _config().trace_verifier:
             print("[verify] FAIL: multiopen/IPA opening", flush=True)
         return False

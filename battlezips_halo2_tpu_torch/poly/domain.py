@@ -144,6 +144,14 @@ class EvaluationDomain:
 
 
 def eval_poly_coeffs(coeffs: list[int], x: int, field: Field = FP) -> int:
+    """Horner evaluation. A coefficient list that carries its bytes
+    (poly/polyints.py::PolyInts, which only the native host engine's routes
+    make) is evaluated on that engine."""
+    pre = getattr(coeffs, "bytes_arr", None)
+    if pre is not None and field is FP:
+        from .. import native
+
+        return native.horner(native.which_for(field.modulus), pre, x % field.modulus)
     acc = 0
     for c in reversed(coeffs):
         acc = (acc * x + c) % field.modulus

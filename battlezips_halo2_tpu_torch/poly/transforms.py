@@ -4,7 +4,9 @@ The ``*_limbs`` functions take and return ``(B, size, 8)`` canonical Fp limb
 tensors and run on the tensors' device (Montgomery conversion and coset
 scaling on kernel K1, the transforms on kernel K4). The ``batch_*``
 functions wrap them for lists of Python-int columns, converting only at the
-edges, as the reference's poly/transforms.py does.
+edges, as the reference's poly/transforms.py does; where BZ_PROOF_ENGINE
+sends the domain to the native host engine (ops/engine.py) they run there
+instead and return PolyInts (poly/polyints.py) that carry their bytes.
 """
 
 from __future__ import annotations
@@ -74,21 +76,55 @@ def _to_lists(t: torch.Tensor) -> list[list[int]]:
     return [flat[i : i + size] for i in range(0, len(flat), size)]
 
 
+def _maybe_native(columns: list, n: int, omega: int, pre_g: int = 1, post_g: int = 1, post_k: int = 1):
+    """The native host engine's transform of size n (scale by pre_g^i,
+    NTT with omega, scale by post_k post_g^i) when ops/engine.py routes
+    size n there; else None."""
+    from ..ops.engine import use_host_engine
+
+    if not use_host_engine(n):
+        return None
+    import numpy as np
+
+    from .. import native
+    from .polyints import PolyInts
+
+    which = native.which_for(P)
+    data = np.zeros((len(columns), n, 32), np.uint8)
+    for i, col in enumerate(columns):
+        data[i, : len(col)] = native.ints_to_bytes_arr([v % P for v in col])
+    if pre_g != 1:
+        native.scale_batch(which, data, pre_g, 1)
+    native.ntt_batch(which, data, omega)
+    if post_g != 1 or post_k != 1:
+        native.scale_batch(which, data, post_g, post_k)
+    return [PolyInts.wrap(native.bytes_arr_to_ints(row), row) for row in data]
+
+
 def batch_lagrange_to_coeff(domain: EvaluationDomain, columns: list, device) -> list[list[int]]:
     if not columns:
         return []
+    out = _maybe_native(columns, domain.n, pow(domain.omega, -1, P), post_k=pow(domain.n, -1, P))
+    if out is not None:
+        return out
     return _to_lists(lagrange_to_coeff_limbs(domain, _to_limbs(columns, domain.n, device)))
 
 
 def batch_coeff_to_lagrange(domain: EvaluationDomain, polys: list, device) -> list[list[int]]:
     if not polys:
         return []
+    out = _maybe_native(polys, domain.n, domain.omega)
+    if out is not None:
+        return out
     return _to_lists(coeff_to_lagrange_limbs(domain, _to_limbs(polys, domain.n, device)))
 
 
 def batch_coeff_to_extended(domain: EvaluationDomain, polys: list, device) -> list[list[int]]:
     if not polys:
         return []
+    out = _maybe_native(polys, domain.extended_n, domain.extended_omega, pre_g=domain.g_coset)
+    if out is not None:
+        return out
     limbs = _to_limbs(polys, domain.extended_n, device)
     return _to_lists(coeff_to_extended_limbs(domain, limbs))
 
@@ -96,4 +132,9 @@ def batch_coeff_to_extended(domain: EvaluationDomain, polys: list, device) -> li
 def batch_extended_to_coeff(domain: EvaluationDomain, evals: list, device) -> list[list[int]]:
     if not evals:
         return []
-    return _to_lists(extended_to_coeff_limbs(domain, _to_limbs(evals, domain.extended_n, device)))
+    ext = domain.extended_n
+    out = _maybe_native(evals, ext, pow(domain.extended_omega, -1, P), post_g=domain.g_coset_inv,
+                        post_k=pow(ext, -1, P))
+    if out is not None:
+        return out
+    return _to_lists(extended_to_coeff_limbs(domain, _to_limbs(evals, ext, device)))

@@ -24,7 +24,10 @@ from the root of a checkout. In order, it
    shapes (a board commitment's 32 and 352 rows of 256 buckets, an IPA
    round's 2 rows of 4, signed c = 10's 104 rows of 513), and timed beside
    the old route (the two-level running sums, one lane-wise K3, or K6,
-   launch per addition);
+   launch per addition). The launch-bound rows (elementwise K1, K4, K5,
+   the lane-wise K3 and K6, K7's 3-point MSM) are timed with the card
+   setting the pace (``ops/timing.py::device_paced_ms``), the host-paced
+   time beside each;
 3. drives the port's proof path through its public API, reading the
    kernels' launch counts around every phase:
 
@@ -51,6 +54,20 @@ from the root of a checkout. In order, it
    configuration K6 exactly as often as K7, and a steady proof
    at most 24 K1 (the quotient program in one launch); the steady proofs
    also print their spans (``BZ_TORCH_TRACE=1``);
+3b. the native engine phase (``run_native_engine``), its counts set to 0
+   before it and read after: builds the native host library with g++ and
+   prints the command and the build time; proves the golden shot and board
+   under ``BZ_PROOF_ENGINE=auto`` (golden bytes, no kernel launched,
+   accepted under auto and device, a tampered copy refused); times steady
+   shot and board proofs and board verifies under device and auto in
+   turns; proves the same session batched under the reference's hybrid
+   (``BZ_BATCH_ENGINE=device BZ_PROOF_ENGINE=auto``: K1-K4, no K7, K3 as
+   often as K2), also with two tail workers, under ``BZ_BATCH_ENGINE=host``
+   and sequentially under auto (no kernel launched), each with the device
+   routes' bytes and verified; profiles the hybrid session
+   (``tools/torch_profile_shot.py``'s ``profiled``) for its device idle
+   share, and times the IPA's 3-point MSM on K7 and natively. Every time
+   prints beside the card's name and power limit;
 4. holds K5 bit-exact against its plain version at the board's own
    extended-domain shape (read from the board's vk), and times it; holds
    K1's VM kernel bit-exact against the plain executor on the card (one
@@ -148,6 +165,15 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def paced(fn, reps: int) -> tuple[float, float]:
+    """(device-paced, host-paced) mean ms of fn() over reps calls
+    (battlezips_halo2_tpu_torch/ops/timing.py): the first with the card
+    setting the pace, the second with the host's launch loop setting it."""
+    from battlezips_halo2_tpu_torch.ops.timing import device_paced_ms, host_paced_ms
+
+    return device_paced_ms(fn, reps), host_paced_ms(fn, reps)
+
+
 def once_ms(fn):
     """(fn(), device time of that one call in ms): for plain versions that
     take seconds."""
@@ -211,11 +237,12 @@ def check_k1(dev, rng: random.Random, rows: int, time_rows: int) -> dict:
     spec = L.FP_SPEC
     a, b = _rand_field(rng, spec.modulus, time_rows, dev), _rand_field(rng, spec.modulus, time_rows, dev)
     out = a.clone()
-    ms = cuda_ms(lambda: L.field_op(L.OP_MUL, spec, a, b, out=out), 200)
+    ms, host = paced(lambda: L.field_op(L.OP_MUL, spec, a, b, out=out), 200)
     plain = cuda_ms(lambda: L.plain_field_op(L.OP_MUL, spec, a, b), 5)
     bms, by = bound_ms(time_rows * 3 * 32, time_rows * MONT_MUL_RESULTS)
-    shape = f"mont_mul over ({time_rows}, 8) Fp"
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "shape": shape}
+    shape = f"mont_mul over ({time_rows}, 8) Fp, device-paced"
+    return {"max_abs_err": err, "ms": ms, "host_paced_ms": host, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "shape": shape}
 
 
 def check_k4(dev, rng: random.Random, sizes, time_batch: int, time_logn: int) -> dict:
@@ -250,12 +277,13 @@ def check_k4(dev, rng: random.Random, sizes, time_batch: int, time_logn: int) ->
     x = _rand_field(rng, p, time_batch * n, dev).view(time_batch, n, 8)
     stage = time_logn - 1
     tw = plan.stage_twiddles[stage]
-    ms = cuda_ms(lambda: D.butterfly_stage(spec, x, tw, stage), 50)
+    ms, host = paced(lambda: D.butterfly_stage(spec, x, tw, stage), 50)
     plain = cuda_ms(lambda: D.butterfly_stage_plain(spec, x, tw, stage), 2)
     nbytes = 2 * time_batch * n * 32 + tw.shape[0] * 32
     bms, by = bound_ms(nbytes, time_batch * (n // 2) * MONT_MUL_RESULTS)
-    shape = f"one stage of ({time_batch}, 2^{time_logn}) Fp"
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "shape": shape}
+    shape = f"one stage of ({time_batch}, 2^{time_logn}) Fp, device-paced"
+    return {"max_abs_err": err, "ms": ms, "host_paced_ms": host, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "shape": shape}
 
 
 def _vesta_points(rng: random.Random, count: int) -> list:
@@ -313,11 +341,12 @@ def check_k3(dev, rng: random.Random, lanes: int) -> dict:
         raise AssertionError("K3 point_add disagrees with the host group law")
     out = torch.empty_like(P)
     R, S = P[generic:].contiguous(), Q[generic:].contiguous()  # generic lanes only
-    ms = cuda_ms(lambda: C.point_add(spec, R, S, out=out[: R.shape[0]]), 100)
+    ms, host = paced(lambda: C.point_add(spec, R, S, out=out[: R.shape[0]]), 100)
     plain = cuda_ms(lambda: C.point_add_plain(spec, R, S), 2)
     bms, by = bound_ms(R.shape[0] * 3 * 96, R.shape[0] * 16 * MONT_MUL_RESULTS)
-    shape = f"{R.shape[0]} generic lanes, Vesta"
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "shape": shape}
+    shape = f"{R.shape[0]} generic lanes, Vesta, device-paced"
+    return {"max_abs_err": err, "ms": ms, "host_paced_ms": host, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "shape": shape}
 
 
 def _bucket_rows(dev, rng: random.Random, rows: int, nbuck: int):
@@ -475,11 +504,12 @@ def check_k6(dev, rng: random.Random, lanes: int) -> dict:
     err = max(err, max_abs_err(into, got))
     R, S = Pp[:, generic:].contiguous(), Qp[:, generic:].contiguous()
     out = torch.empty_like(R)
-    ms = cuda_ms(lambda: C.point_add_planes(spec, R, S, out=out), 100)
+    ms, host = paced(lambda: C.point_add_planes(spec, R, S, out=out), 100)
     plain = cuda_ms(lambda: C.point_add_planes_plain(spec, R, S), 2)
     bms, by = bound_ms(R.shape[1] * 3 * 96, R.shape[1] * 16 * MONT_MUL_RESULTS)
-    shape = f"{R.shape[1]} generic lanes as (3, lanes, 8) planes, Vesta"
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "shape": shape}
+    shape = f"{R.shape[1]} generic lanes as (3, lanes, 8) planes, Vesta, device-paced"
+    return {"max_abs_err": err, "ms": ms, "host_paced_ms": host, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "shape": shape}
 
 
 def check_k5(dev, rng: random.Random, sizes, time_batch: int, time_logn: int) -> dict:
@@ -518,12 +548,13 @@ def check_k5(dev, rng: random.Random, sizes, time_batch: int, time_logn: int) ->
     got = D.butterfly_rows(spec, u, v, tw)
     want = D.butterfly_rows_plain(spec, u, v, tw)
     err = max(err, max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
-    ms = cuda_ms(lambda: D.butterfly_rows(spec, u, v, tw), 50)
+    ms, host = paced(lambda: D.butterfly_rows(spec, u, v, tw), 50)
     plain = cuda_ms(lambda: D.butterfly_rows_plain(spec, u, v, tw), 2)
     pairs = time_batch * (n // 2)
     bms, by = bound_ms(4 * pairs * 32 + tw.shape[0] * 32, pairs * MONT_MUL_RESULTS)
-    shape = f"one stage of ({time_batch}, 2^{time_logn}) Fp: u, v ({time_batch}, 2^{time_logn - 1}, 8)"
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "shape": shape}
+    shape = f"one stage of ({time_batch}, 2^{time_logn}) Fp: u, v ({time_batch}, 2^{time_logn - 1}, 8), device-paced"
+    return {"max_abs_err": err, "ms": ms, "host_paced_ms": host, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "shape": shape}
 
 
 BOARD_COMMIT_BATCH = 11  # columns of the board's largest commit pass (K3's 352 rows = 11 x 32 windows)
@@ -657,7 +688,8 @@ def check_k2_k7(dev, rng: random.Random, n_points: int = 2049) -> tuple[dict, di
         tab, src_t, starts_t, _, bid = M.bucket_runs(spec, table, lim, c, False)
         return tab, src_t, starts_t, bid
 
-    def case(shape: str, name: str, tab, src_t, starts_t, bid, reps: int, host_points=None, host_buckets=()):
+    def case(shape: str, name: str, tab, src_t, starts_t, bid, reps: int, host_points=None, host_buckets=(),
+             device_paced: bool = False):
         complete = name == "K7"
         stats = _run_stats(starts_t)
         chunk, chunks, resident = _k2_layout(dev, stats, complete)
@@ -672,7 +704,10 @@ def check_k2_k7(dev, rng: random.Random, n_points: int = 2049) -> tuple[dict, di
         if host_points is not None:
             checked = _check_host_law(spec, f"{name} [{shape}]", out, flags.cpu(), host_points, src_t.tolist(),
                                       starts_t.tolist(), host_buckets)
-        ms = cuda_ms(lambda: M.bucket_sums(spec, tab, src_t, starts_t, bid, complete), reps)
+        if device_paced:  # launch-bound: the card sets the pace, the host-paced time beside it
+            ms, host = paced(lambda: M.bucket_sums(spec, tab, src_t, starts_t, bid, complete), reps)
+        else:
+            ms, host = cuda_ms(lambda: M.bucket_sums(spec, tab, src_t, starts_t, bid, complete), reps), None
         adds = stats["rows"] - stats["live_buckets"]  # every row after its bucket's head
         nbytes = stats["rows"] * (64 + 4 + 4) + stats["buckets"] * (4 + 96 + 4)
         bms, by = bound_ms(nbytes, adds * (12 if complete else 11) * MONT_MUL_RESULTS)
@@ -681,7 +716,7 @@ def check_k2_k7(dev, rng: random.Random, n_points: int = 2049) -> tuple[dict, di
         pieces = int(((last // chunk) - (first // chunk) + 1)[lens > 0].max()) if stats["rows"] else 0
         row = {"shape": shape, **stats, "chunk": chunk, "chunks": chunks, "resident_threads": resident,
                "max_pieces": pieces, "flags": int(flags.sum()), "host_checked": checked, "max_abs_err": err,
-               "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by}
+               "ms": ms, "host_paced_ms": host, "plain_ms": plain, "bound_ms": bms, "bound_by": by}
         per_shape[name].append(row)
         log(f"  {name} {shape}: {stats['rows']} rows, {stats['buckets']} buckets ({stats['live_buckets']} live), "
             f"mean run {stats['mean_run']:.2f}, longest {stats['longest_run']}, L = {chunk} over {chunks} of "
@@ -730,13 +765,16 @@ def check_k2_k7(dev, rng: random.Random, n_points: int = 2049) -> tuple[dict, di
          rng.sample(range(ipa_runs[2].shape[0] - 1), 256))
     # the IPA's 3-point MSM [base, u, w] x [1, v z, r] (complete, c = 2)
     three = runs_of(pts[:3], [1, rng.randrange(p_mod), rng.randrange(p_mod)], 1, 2)
-    case("IPA 3-point MSM, 1 x 3 points, c = 2", "K7", *three, 50, pts[:3], range(three[2].shape[0] - 1))
+    case("IPA 3-point MSM, 1 x 3 points, c = 2 (device-paced)", "K7", *three, 50, pts[:3],
+         range(three[2].shape[0] - 1), device_paced=True)
     rows = {}
     for name in ("K2", "K7"):
         head = next(r for r in per_shape[name] if r["shape"].startswith("board commit"))
         rows[name] = {"max_abs_err": errs[name], "ms": head["ms"], "plain_ms": head["plain_ms"],
                       "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                       "shape": f"{head['shape']} (per_shape: every shape)", "per_shape": per_shape[name]}
+    three_row = per_shape["K7"][-1]
+    rows["K7"]["three_point"] = {k: three_row[k] for k in ("ms", "host_paced_ms", "plain_ms", "bound_ms", "bound_by")}
     return rows["K2"], rows["K7"]
 
 
@@ -884,13 +922,14 @@ def _session_bytes(session) -> list:
     return [p.proof for p in session.board_proofs + session.shot_proofs]
 
 
-def run_sessions(dev, timed: Phases) -> dict:
+def run_sessions(dev, timed: Phases) -> tuple[dict, list]:
     """One game of four shots through api.prove_session: sequential, batched
     (the batch prover), batched with two workers (two sub-batches of two
     shots), batched with the per-proof tail on two threads
     (BZ_BATCH_TAIL_WORKERS=2), and sequential with dp_devices=1 (the first
     card). Every run must give the sequential run's bytes, and
-    verify_session must accept each. -> the session launches, by run."""
+    verify_session must accept each. -> (the session launches by run, the
+    session's proof bytes)."""
     import torch
 
     from battlezips_halo2_tpu_torch import api
@@ -923,25 +962,219 @@ def run_sessions(dev, timed: Phases) -> dict:
         if not timed(f"verify_session [{tag}]", lambda: api.verify_session(session, device=dev)):
             raise AssertionError(f"verify_session rejected the session [{tag}]")
     log(f"session bytes equal across {', '.join(runs)}")
-    return launches
+    return launches, want
 
 
-def run_main_path(dev) -> tuple[Phases, dict, dict]:
+def run_main_path(dev) -> tuple[Phases, dict, dict, list]:
     timed = Phases()
     run_shot(dev, timed)
     run_board(dev, timed, "default")
     rows = run_board_rows(dev, timed)
-    sessions = run_sessions(dev, timed)
-    return timed, rows, sessions
+    sessions, session_bytes = run_sessions(dev, timed)
+    return timed, rows, sessions, session_bytes
 
 
-def _load_microbenchmark():
+NATIVE_REPS = 3  # steady-state proofs, verifies and sessions per engine
+HYBRID = {"BZ_BATCH_ENGINE": "device", "BZ_PROOF_ENGINE": "auto"}  # the reference's batched route
+
+
+def _with_env(env: dict, fn):
+    """fn() with ``env`` set, the environment restored after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _no_launches(timed: Phases, name: str) -> None:
+    if any(timed.launches[name].values()):
+        raise AssertionError(f"{name} launched kernels on the native host engine: {timed.launches[name]}")
+
+
+def _load_tool(path: Path, name: str):
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location("torch_exp_step_t", MICROBENCHMARK)
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def run_native_engine(dev, timed: Phases, session_want: list) -> dict:
+    """The native host engine (battlezips_halo2_tpu_torch/native) and its
+    routing. Builds the library (g++); proves the one-game session under
+    BZ_BATCH_ENGINE=host with the default proof engine while nothing native
+    is cached on the keys (the route's cold first session: device bytes,
+    no launch); proves the golden shot and board under BZ_PROOF_ENGINE=auto (golden bytes, no kernel launched, accepted
+    by verify under auto and under device, a tampered proof refused);
+    times steady proofs of both circuits and the board's verify under
+    device and auto (same bytes for the same rng; the last proof of each
+    prints its spans); proves the one-game session batched under the
+    reference's hybrid (BZ_BATCH_ENGINE=device + BZ_PROOF_ENGINE=auto:
+    K1-K4 for the commitments and the quotient, no K7, K3 == K2), also
+    with BZ_BATCH_TAIL_WORKERS=2, under
+    BZ_BATCH_ENGINE=host (no launch) and sequentially under auto, each
+    with the device routes' bytes and verified; profiles the hybrid
+    session for its device idle share; times the IPA's 3-point MSM on K7
+    and on the native Pippenger. -> the phase's numbers."""
+    import statistics
+
+    import torch
+
+    from battlezips_halo2_tpu_torch import api, native
+    from battlezips_halo2_tpu_torch.curves.host import VESTA
+    from battlezips_halo2_tpu_torch.ops.msm import host_msm, msm
+    from battlezips_halo2_tpu_torch.utils import Board, Deck
+
+    card = card_line()
+    report = {"card": card}
+    t = time.time()
+    lib = native.build()
+    native.load()
+    report["build_s"] = time.time() - t
+    report["build_command"] = " ".join(native.build_command(lib))
+    log(f"phase native build: {report['build_s']:.3f} s: {report['build_command']}")
+
+    # BZ_BATCH_ENGINE=host's first session under the default proof engine:
+    # the native quotient constants, wrapped fixed / sigma polys and SRS
+    # buffers are built inside it
+    keys = [api.board_keys(dev), api.shot_keys(dev)]
+    if any("_native_quotient_evaluator" in pk.vk.__dict__ for _, pk in keys):
+        raise AssertionError("a native quotient evaluator was built before the cold host session")
+    name = "prove_session (1 game, 4 shots, host, batched, cold)"
+    session = _with_env({"BZ_BATCH_ENGINE": "host", "BZ_PROOF_ENGINE": "device"}, lambda: timed(
+        name, lambda: api.prove_session([GOLDEN_PLACEMENTS], shots_per_game=4, trapdoors=[0xBEEF], seed=5,
+                                        device=dev, workers=1, batched=True)))
+    _no_launches(timed, name)
+    if _session_bytes(session) != session_want:
+        raise AssertionError("the cold BZ_BATCH_ENGINE=host session differs from the device routes'")
+    report["host_batched_cold_s"] = timed.seconds[name]
+
+    golden = {"shot": json.loads(GOLDEN.read_text()), "board": json.loads(GOLDEN_BOARD.read_text())}
+    board = Board.from_deck(Deck.from_placements(GOLDEN_PLACEMENTS))
+    prove = {
+        "shot": lambda seed: api.prove_shot(board.state(), 0xBEEF, (3, 3), True, rng=random.Random(seed), device=dev),
+        "board": lambda seed: api.prove_board(GOLDEN_PLACEMENTS, 0xBEEF, rng=random.Random(seed), device=dev),
+    }
+    verify = {"shot": lambda p: api.verify_shot(p, device=dev), "board": lambda p: api.verify_board(p, device=dev)}
+    tamper = {"shot": lambda p: api.ShotProof(p.commitment, p.shot, p.hit, _tampered(p.proof)),
+              "board": lambda p: api.BoardProof(p.commitment, _tampered(p.proof))}
+    auto = {"BZ_PROOF_ENGINE": "auto"}
+    for circuit in ("shot", "board"):
+        name = f"prove_{circuit} (golden rng) [auto]"
+        proof = _with_env(auto, lambda: timed(name, lambda: prove[circuit](golden[circuit]["seed"])))
+        _no_launches(timed, name)
+        if proof.proof.hex() != golden[circuit]["proof_hex"]:
+            raise AssertionError(f"{circuit} proof bytes under BZ_PROOF_ENGINE=auto differ from the golden vector")
+        for engine in ("auto", "device"):
+            name = f"verify_{circuit} [{engine}]"
+            if not _with_env({"BZ_PROOF_ENGINE": engine}, lambda: timed(name, lambda: verify[circuit](proof))):
+                raise AssertionError(f"verify_{circuit} under {engine} rejected the golden proof")
+            if engine == "auto":
+                _no_launches(timed, name)
+            name = f"verify_{circuit} (tampered) [{engine}]"
+            if _with_env({"BZ_PROOF_ENGINE": engine}, lambda: timed(name, lambda: verify[circuit](tamper[circuit](proof)))):
+                raise AssertionError(f"verify_{circuit} under {engine} accepted a tampered proof")
+        log(f"golden {circuit} proof bytes equal under BZ_PROOF_ENGINE=auto, no kernel launched; verified under "
+            f"auto and device")
+
+    # steady state: the same fresh rngs under device and auto, in turns
+    steady = {}
+    for circuit in ("shot", "board"):
+        for i in range(NATIVE_REPS):
+            proofs = {}
+            for engine in ("device", "auto"):
+                env = {"BZ_PROOF_ENGINE": engine}
+                if i == NATIVE_REPS - 1:  # the last proof of each engine prints its spans
+                    env["BZ_TORCH_TRACE"] = "1"
+                name = f"prove_{circuit} (steady #{i}) [{engine}]"
+                proofs[engine] = _with_env(env, lambda: timed(name, lambda: prove[circuit](9 + i)))
+                steady.setdefault(f"prove_{circuit}", {}).setdefault(engine, []).append(timed.seconds[name])
+                if circuit == "board":
+                    name = f"verify_board (steady #{i}) [{engine}]"
+                    if not _with_env(env, lambda: timed(name, lambda: verify["board"](proofs[engine]))):
+                        raise AssertionError(f"verify_board under {engine} rejected a steady proof")
+                    steady.setdefault("verify_board", {}).setdefault(engine, []).append(timed.seconds[name])
+                if engine == "auto":
+                    _no_launches(timed, f"prove_{circuit} (steady #{i}) [auto]")
+            if proofs["device"].proof != proofs["auto"].proof:
+                raise AssertionError(f"{circuit} proofs differ between the device and auto engines")
+
+    # sessions: the device routes' bytes on every route
+    routes = {  # tag: (environment, prove_session options)
+        "device, batched": ({"BZ_BATCH_ENGINE": "device"}, dict(batched=True)),
+        "hybrid, batched": (HYBRID, dict(batched=True)),
+        "hybrid, batched, tail workers=2": ({**HYBRID, "BZ_BATCH_TAIL_WORKERS": "2"}, dict(batched=True)),
+        "host, batched": ({"BZ_BATCH_ENGINE": "host"}, dict(batched=True)),
+        "auto, sequential": ({"BZ_PROOF_ENGINE": "auto"}, dict(batched=False)),
+    }
+    sessions = {}
+    for tag, (env, opts) in routes.items():
+        for i in range(NATIVE_REPS):
+            name = f"prove_session (1 game, 4 shots, {tag}) #{i}"
+            session = _with_env(env, lambda: timed(name, lambda: api.prove_session(
+                [GOLDEN_PLACEMENTS], shots_per_game=4, trapdoors=[0xBEEF], seed=5, device=dev, workers=1, **opts)))
+            sessions.setdefault(tag, {"seconds": [], "launches": timed.launches[name]})["seconds"].append(
+                timed.seconds[name])
+            if _session_bytes(session) != session_want:
+                raise AssertionError(f"session proofs differ from the device routes' [{tag}]")
+            launched = timed.launches[name]
+            if tag.startswith("hybrid"):
+                if launched["K7"] or not launched["K2"] or launched["K3"] != launched["K2"]:
+                    raise AssertionError(f"the hybrid took the wrong kernels: {launched}")
+                if not (launched["K1"] and launched["K4"]):
+                    raise AssertionError(f"the hybrid ran its quotient or NTTs off the card: {launched}")
+            elif tag.startswith(("host", "auto")):
+                _no_launches(timed, name)
+        if not _with_env(env, lambda: timed(f"verify_session [{tag}]", lambda: api.verify_session(session, device=dev))):
+            raise AssertionError(f"verify_session rejected the session [{tag}]")
+    log(f"session bytes equal to the device routes' across {', '.join(routes)}; each verified")
+
+    # the hybrid session's device idle share
+    profile = _load_tool(ROOT / "tools" / "torch_profile_shot.py", "torch_profile_shot")
+    hybrid_profile = _with_env(HYBRID, lambda: profile.profiled(lambda: api.prove_session(
+        [GOLDEN_PLACEMENTS], shots_per_game=4, trapdoors=[0xBEEF], seed=5, device=dev, batched=True)))
+    report["hybrid_session_profile"] = {k: hybrid_profile[k] for k in ("wall_s", "device_busy_ms", "device_idle_share")}
+
+    # the IPA's 3-point MSM [base, u, w] x [1, v z, r]: K7 (device) against the native Pippenger (auto)
+    rng = random.Random(3)
+    pts = [VESTA.mul(VESTA.generator, rng.randrange(1, VESTA.scalar.modulus)) for _ in range(3)]
+    scalars = [1] + [rng.randrange(VESTA.scalar.modulus) for _ in range(2)]
+    msm3 = {}
+    for engine, fn in (("device", lambda: msm(VESTA, pts, scalars, dev)), ("auto", lambda: host_msm(VESTA, pts, scalars))):
+        fn()
+        times = []
+        for _ in range(50):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        msm3[engine] = {"median_ms": statistics.median(times), "min_ms": min(times)}
+    if msm(VESTA, pts, scalars, dev) != host_msm(VESTA, pts, scalars):
+        raise AssertionError("the 3-point MSM differs between K7 and the native Pippenger")
+    report.update(steady_s=steady, sessions=sessions, msm_3_point=msm3)
+
+    for key, by_engine in steady.items():
+        log(f"native engine [{card}]: {key} steady seconds " + "; ".join(
+            f"{e} {statistics.median(v):.4f} (runs {', '.join(f'{x:.4f}' for x in v)})" for e, v in by_engine.items()))
+    for tag, r in sessions.items():
+        log(f"native engine [{card}]: prove_session ({tag}) seconds median {statistics.median(r['seconds']):.4f} "
+            f"(runs {', '.join(f'{x:.4f}' for x in r['seconds'])}), launches {r['launches']}")
+    hp = report["hybrid_session_profile"]
+    log(f"native engine [{card}]: hybrid session under torch.profiler: {hp['wall_s']:.4f} s, device busy "
+        f"{hp['device_busy_ms']:.3f} ms, idle share {hp['device_idle_share']}")
+    log(f"native engine [{card}]: cold first BZ_BATCH_ENGINE=host session (BZ_PROOF_ENGINE=device) "
+        f"{report['host_batched_cold_s']:.4f} s")
+    log(f"native engine [{card}]: IPA 3-point MSM, host clock: K7 (device) median {msm3['device']['median_ms']:.4f} "
+        f"ms, native (auto) median {msm3['auto']['median_ms']:.4f} ms")
+    return report
 
 
 def run_microbenchmark(dev) -> tuple[dict, dict]:
@@ -950,7 +1183,7 @@ def run_microbenchmark(dev) -> tuple[dict, dict]:
     plain chain and times both. -> rows for K8 and K9."""
     from battlezips_halo2_tpu_torch.fields.limb import CHAIN_OPS
 
-    micro = _load_microbenchmark()
+    micro = _load_tool(MICROBENCHMARK, "torch_exp_step_t")
     cfg = micro.settings()
     chain = micro.run_chain(dev, cfg["n"], cfg["steps"])
     kmicro = micro.run_kmicro(dev, cfg["n"], cfg["reps"], list(CHAIN_OPS))
@@ -1019,7 +1252,8 @@ def sass_mont_mul(lib: Path) -> tuple[tuple[int, int], tuple[int, int]]:
 
 def report_rows(rows: dict) -> None:
     for name, r in rows.items():
-        log(f"  {name} {r['shape']}: max_abs_err {r['max_abs_err']}, kernel {r['ms']:.4f} ms, "
+        host = f" ({r['host_paced_ms']:.4f} ms host-paced)" if r.get("host_paced_ms") is not None else ""
+        log(f"  {name} {r['shape']}: max_abs_err {r['max_abs_err']}, kernel {r['ms']:.4f} ms{host}, "
             f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{name} disagrees with its plain version")
@@ -1091,12 +1325,22 @@ def main() -> int:
 
     # the proof path: K1-K7
     cuda.reset_launches()
-    timed, row_launches, session_launches = run_main_path(dev)
+    timed, row_launches, session_launches, session_bytes = run_main_path(dev)
     launches = dict(cuda.launches)
     log(f"proof path launches: {launches}")
     missing = [k for k in PROOF_PATH_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the proof path: {missing}")
+
+    # the native host engine and its routes: auto (no kernel), the hybrid (K1-K4), host (no kernel)
+    cuda.reset_launches()
+    t = time.time()
+    native_report = run_native_engine(dev, timed, session_bytes)
+    native_report["launches"] = dict(cuda.launches)
+    log(f"phase native engine: {time.time() - t:.3f} s, launches {native_report['launches']}")
+    missing = [k for k in ("K1", "K2", "K3", "K4") if native_report["launches"][k] <= 0]
+    if missing:  # the hybrid's kernels (its sessions' own counts are checked in the phase)
+        raise AssertionError(f"kernels not launched in the native engine phase: {missing}")
 
     # K5 at the board's own extended-domain shape: every polynomial the
     # quotient extends, at the vk's extended domain
@@ -1133,7 +1377,7 @@ def main() -> int:
         r = rows[name]
         extra = {k: r[k] for k in ("ms_launch_per_step", "host_paced_ms", "host_paced_ms_launch_per_step",
                                    "launch_floor_ms", "per_op", "old_route_ms", "per_shape", "resident_threads",
-                                   "shot") if k in r}
+                                   "shot", "three_point") if k in r}
         if name in lane_wise:  # the elementwise kernel beside the new entry, under the same name
             extra["elementwise_kernel"] = {**lane_wise[name], "source": {
                 "K1": "battlezips_halo2_tpu_torch/csrc/field_ops.cu",
@@ -1146,7 +1390,7 @@ def main() -> int:
             "library_ms": r.get("library_ms"), "shape": r["shape"], **extra,
         })
     print(json.dumps({"kernels": kernels, "phases_s": timed.seconds, "row_configuration_launches": row_launches,
-                      "session_launches": session_launches, "ops_per_s": OPS_PER_S,
+                      "session_launches": session_launches, "native_engine": native_report, "ops_per_s": OPS_PER_S,
                       "mont_mul_results": MONT_MUL_RESULTS}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -93,14 +93,26 @@ def test_singleton_batch_is_the_golden_proof(monkeypatch):
 
 def test_create_proof_is_a_batch_of_one_on_the_device_engine(monkeypatch):
     """create_proof runs the batch prover on one proof, on the device
-    engine whatever BZ_BATCH_ENGINE says."""
+    engine by default whatever BZ_BATCH_ENGINE says, and on the engine
+    BZ_PROOF_ENGINE picks for the domain otherwise."""
     from battlezips_halo2_tpu_torch.plonk import batch_prover, create_proof
+
+    class FakeParams:
+        n = 1 << 12
 
     calls = []
     monkeypatch.setattr(batch_prover, "create_proofs_batched", lambda *a, **kw: calls.append((a, kw)) or [b"p"])
+    monkeypatch.delenv("BZ_PROOF_ENGINE", raising=False)
     monkeypatch.setenv("BZ_BATCH_ENGINE", "host")
-    assert create_proof("params", "pk", "circuit", [[15]], "rng") == b"p"
-    assert calls == [(("params", "pk", ["circuit"], [[[15]]], ["rng"]), {"engine": "device"})]
+    params = FakeParams()
+    assert create_proof(params, "pk", "circuit", [[15]], "rng") == b"p"
+    assert calls == [((params, "pk", ["circuit"], [[[15]]], ["rng"]), {"engine": "device"})]
+    for engine, limit, want in (("host", 1 << 10, "host"), ("auto", 1 << 12, "host"), ("auto", 1 << 11, "device")):
+        monkeypatch.setenv("BZ_PROOF_ENGINE", engine)
+        monkeypatch.setenv("BZ_LATENCY_N_MAX", str(limit))
+        calls.clear()
+        create_proof(params, "pk", "circuit", [[15]], "rng")
+        assert calls[0][1] == {"engine": want}
 
 
 def test_commit_chunks_do_not_change_commitments():
@@ -158,13 +170,20 @@ def test_batch_quotient_matches_sequential_on_lookup_keys(monkeypatch):
     assert got[::-1] == batch(polys[::-1], chals[::-1])
 
 
-def test_batch_engine_host_raises_and_unknown_engine(monkeypatch):
+def test_batch_engine_host_raises_and_unknown_engine(monkeypatch, tmp_path):
+    """The host engine raises when the native library does not build (a
+    compiler that cannot be found), by argument and by BZ_BATCH_ENGINE, and
+    proves nothing by another route; an unknown engine raises."""
+    from battlezips_halo2_tpu_torch import native
+
     _, _, params, pk = _mul_keys()
     args = (params, pk, [MulCircuit(3, 5, 15)], [[[15]]], [random.Random(1)])
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    monkeypatch.setattr(native, "CXX", str(tmp_path / "no-such-g++"))
+    monkeypatch.setattr(native, "_lib", None)
+    with pytest.raises(RuntimeError, match="native host engine does not build"):
         create_proofs_batched(*args, engine="host")
     monkeypatch.setenv("BZ_BATCH_ENGINE", "host")
-    with pytest.raises(NotImplementedError, match="native"):
+    with pytest.raises(RuntimeError, match="native host engine does not build"):
         create_proofs_batched(*args)
     with pytest.raises(ValueError):
         create_proofs_batched(*args, engine="tpu")

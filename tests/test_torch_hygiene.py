@@ -1,11 +1,15 @@
 """The port stands alone and runs on the card unless told otherwise:
 no module of battlezips_halo2_tpu_torch, nor chip_smoke.py,
-tools/torch_profile_shot.py or tools/torch_exp_step_t.py, nor the card's
-tests (tests/test_torch_kernels.py and the inputs it takes from
-tests/test_torch_inputs.py), imports JAX or the JAX package; entry points refuse the CPU unless ``device="cpu"``;
-chip_smoke.py fails without a card and outside a checkout."""
+tools/torch_profile_shot.py, tools/torch_exp_step_t.py or
+tools/torch_window_sums.py, nor the card's tests (tests/test_torch_kernels.py
+and the inputs it takes from tests/test_torch_inputs.py), imports JAX or the
+JAX package; no file of the port names the JAX package's native runtime or
+the root copy of its C++ source; entry points refuse the CPU unless
+``device="cpu"``; chip_smoke.py fails without a card and outside a
+checkout."""
 
 import ast
+import re
 import shutil
 import subprocess
 import sys
@@ -32,13 +36,37 @@ def _imports(path: Path) -> set[str]:
 @pytest.mark.parametrize(
     "path",
     sorted(PORT.rglob("*.py"))
-    + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_profile_shot.py", ROOT / "tools" / "torch_exp_step_t.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_profile_shot.py", ROOT / "tools" / "torch_exp_step_t.py",
+       ROOT / "tools" / "torch_window_sums.py"]
     + [ROOT / "tests" / "test_torch_kernels.py", ROOT / "tests" / "test_torch_inputs.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+# the JAX package's native runtime, and the root pasta.cpp (a path that is not the port's own copy)
+NATIVE_REFERENCE = re.compile(r"battlezips_halo2_tpu/native|(?<![\w./])csrc/pasta\.cpp")
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(p for p in PORT.rglob("*") if p.suffix in (".py", ".cpp", ".cu", ".cuh") and "build" not in p.parts)
+    + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_port_keeps_its_own_native_engine(path):
+    """The port loads its own pasta.cpp, built into its own directory: no
+    file of it names the JAX package's native runtime or the root source."""
+    bad = NATIVE_REFERENCE.findall(path.read_text())
+    assert not bad, f"{path} names {bad}"
+
+
+def test_native_source_is_the_ports_own():
+    from battlezips_halo2_tpu_torch import native
+
+    assert native.SOURCE == PORT / "csrc" / "pasta.cpp" and native.BUILD_ROOT == PORT / "csrc" / "build"
 
 
 def test_entry_points_need_a_card_unless_cpu():

@@ -36,7 +36,7 @@ one process, in turns (tree, copies, copies in reverse, tree), each held
 bit for bit against the plain chains first; the tree's K9 also runs in
 the 256-thread blocks it had before its grid plan.
 
-Kernel times are device-paced (:func:`device_paced_ms`): a wait on the
+Kernel times are device-paced (``ops/timing.py::device_paced_ms``): a wait on the
 card lets the host queue every timed launch before the first one runs, so
 the host's launch rate cannot set them. The host-paced time (CUDA events
 around a Python loop of calls, as earlier runs timed) is kept beside it
@@ -53,7 +53,6 @@ import re
 import shutil
 import subprocess
 import sys
-import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -67,12 +66,10 @@ from battlezips_halo2_tpu_torch.curves import limb as C  # noqa: E402
 from battlezips_halo2_tpu_torch.curves.host import VESTA  # noqa: E402
 from battlezips_halo2_tpu_torch.fields import limb as L  # noqa: E402
 from battlezips_halo2_tpu_torch.ops import cuda  # noqa: E402
+from battlezips_halo2_tpu_torch.ops.timing import device_paced_ms, host_paced_ms  # noqa: E402
 
 SPEC = L.FQ_SPEC  # Vesta's base field, as exp_step_t.py:46
 HEAD_P = 0.02
-# torch.cuda._sleep counts SM clock cycles; 2e9 a second is above the
-# H100's 1980 MHz maximum, so a wait lasts at least as long as asked
-SLEEP_CYCLES_PER_S = 2.0e9
 CARRY_CHAIN = "#define BZ_FE_CARRY_CHAIN\n"
 CHAIN_SOURCES = ("field.cuh", "step_chain.cu", "op_chain.cu")
 # the builds `compare` times against the tree's: name -> (drop the
@@ -93,62 +90,6 @@ def settings() -> dict:
         "reps": int(os.environ.get("PROF_REPS", "32")),
         "ops": os.environ.get("PROF_OPS", "mul,add,sub").split(","),
     }
-
-
-def host_paced_ms(fn, reps: int) -> float:
-    """Mean time of fn() over reps calls by CUDA events around a Python loop
-    of calls, warmed up. Where a call takes the host longer than the card,
-    this is the host's launch rate, not the kernel's time."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_paced_ms(fn, reps: int, setup=None) -> float:
-    """Mean device time of fn() over reps calls, with the card setting the
-    pace: a wait on the card (``torch.cuda._sleep``), twice as long as the
-    host took to queue the reps calls, runs before the start event, so
-    every timed launch is queued before the first one runs. The start
-    event must still be pending once the last call is queued; else the
-    wait grows fourfold and the window runs again. ``setup()`` (for example
-    restoring inputs that fn updates in place) runs before each window,
-    outside it. Raises without a card."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("device_paced_ms times the card: no CUDA device")
-    if setup:
-        setup()
-    fn()
-    torch.cuda.synchronize()
-    if setup:
-        setup()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    wait_s = 2 * (time.perf_counter() - t0) + 1e-3
-    torch.cuda.synchronize()
-    for _ in range(4):
-        if setup:
-            setup()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(wait_s * SLEEP_CYCLES_PER_S))
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        ahead = not start.query()
-        torch.cuda.synchronize()
-        if ahead:
-            return start.elapsed_time(end) / reps
-        wait_s *= 4
-    raise RuntimeError("the host did not queue the timed launches ahead of the card")
 
 
 def chain_inputs(n: int, steps: int, device):

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of one k=11 shot proof (or, with ``--board``, one k=12
-board proof) of battlezips_halo2_tpu_torch goes on an NVIDIA card.
+board proof, or with ``--session``, one batched game session of a board
+and four shots) of battlezips_halo2_tpu_torch goes on an NVIDIA card.
 
-    python3 tools/torch_profile_shot.py [--board] [--out PATH]
+    python3 tools/torch_profile_shot.py [--board | --session] [--out PATH]
 
 from the repo root, on a machine with a card. After the keys and one
 warm-up proof it proves and verifies once more under ``torch.profiler``
@@ -10,7 +11,10 @@ and prints one JSON object: wall seconds, device busy milliseconds (the
 sum of the kernels' own device time), the device's idle share, and the
 kernels ordered by device time. The card's name and power limit come
 first. ``--out`` also writes the JSON to a file. The engine configuration
-is the environment's (``BZ_ROW_NTT`` / ``BZ_ROW_MSM``).
+is the environment's: ``BZ_ROW_NTT`` / ``BZ_ROW_MSM``, ``BZ_PROOF_ENGINE``
+and ``BZ_BATCH_ENGINE`` (``BZ_BATCH_ENGINE=device BZ_PROOF_ENGINE=auto
+--session`` profiles the reference's hybrid: commitments and quotient on
+the card, the proof tail on the native host engine).
 """
 
 from __future__ import annotations
@@ -63,7 +67,9 @@ def profiled(fn) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--out", type=Path, default=None)
-    parser.add_argument("--board", action="store_true", help="profile a board proof instead of a shot proof")
+    what = parser.add_mutually_exclusive_group()
+    what.add_argument("--board", action="store_true", help="profile a board proof instead of a shot proof")
+    what.add_argument("--session", action="store_true", help="profile a batched session of a board and four shots")
     args = parser.parse_args()
     import torch
 
@@ -80,10 +86,12 @@ def main() -> int:
     print(smi.stdout.strip(), flush=True)
     placements = [(3, 3, True), (5, 4, False), (0, 1, False), (0, 5, True), (6, 1, False)]
     board = Board.from_deck(Deck.from_placements(placements))
-    name = "board" if args.board else "shot"
-    verify = api.verify_board if args.board else api.verify_shot
+    name = "board" if args.board else "session" if args.session else "shot"
+    verify = api.verify_board if args.board else api.verify_session if args.session else api.verify_shot
 
     def prove(seed: int):
+        if args.session:
+            return api.prove_session([placements], shots_per_game=4, trapdoors=[0xBEEF], seed=seed, batched=True)
         if args.board:
             return api.prove_board(placements, 0xBEEF, rng=random.Random(seed))
         return api.prove_shot(board.state(), 0xBEEF, (3, 3), True, rng=random.Random(seed))
