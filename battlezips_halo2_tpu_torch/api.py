@@ -2,8 +2,10 @@
 
 Semantic mirror of the reference's WASM bindings (``prove_board`` /
 ``verify_board`` / ``prove_shot`` / ``verify_shot`` over plain Python data)
-and of its ``prove_session`` / ``verify_session``. Params and keys are built
-once per device and cached for the process. ``device=None`` means the CUDA
+and of its ``prove_session`` / ``verify_session``. The SRS and the proving
+keys come from the artifact store (artifacts.py, ``.artifacts/torch/``):
+read once a process and bound to each device, or derived and written when
+a file is missing or fails to load. ``device=None`` means the CUDA
 card; pass ``device="cpu"`` to run the plain PyTorch versions of the
 kernels.
 """
@@ -18,12 +20,14 @@ from functools import lru_cache
 
 import torch
 
+from . import artifacts
 from .circuits import BoardCircuit, ShotCircuit
 from .config import config
 from .fields.host import FQ
 from .ops.cuda import resolve_device
-from .pcs.ipa import Params
+from .pcs.ipa import Params, cached_params
 from .plonk import create_proof, create_proofs_batched, keygen, verify_proof
+from .plonk.keys import PK_SCHEMA, ProvingKey
 from .utils import BinaryValue, Board, Deck, pedersen_commit, serialize
 
 
@@ -49,29 +53,40 @@ class GameSession:
     shot_proofs: list
 
 
+def _cached_pk(name: str, params: Params, make_circuit) -> ProvingKey:
+    """The proving key of ``make_circuit()``'s circuit, from the artifact
+    store (artifacts.py): read once a process, or made by keygen on
+    ``params``' device and written."""
+    path = artifacts.directory() / f"pk_{name}_k{params.k}_v{PK_SCHEMA}.pkl"
+    return artifacts.cached(path, ProvingKey.load, lambda: keygen(params, make_circuit()), ProvingKey.save)
+
+
 def board_keys(device=None):
-    """(Params, ProvingKey) of the board circuit on ``device``: the SRS by
-    hash-to-curve and keygen, built once per device."""
+    """(Params, ProvingKey) of the board circuit on ``device``: the SRS and
+    the key from the artifact store (hash-to-curve and keygen when a file
+    is missing), once per device."""
     return _board_keys(str(resolve_device(device)))
 
 
 @lru_cache(maxsize=None)
 def _board_keys(device: str):
-    params = Params.new(BoardCircuit.K, device)
-    pk = keygen(params, BoardCircuit([BinaryValue(1)] + [BinaryValue.empty()] * 9, BinaryValue(1), 1))
+    params = cached_params(BoardCircuit.K, device)
+    pk = _cached_pk("board", params,
+                    lambda: BoardCircuit([BinaryValue(1)] + [BinaryValue.empty()] * 9, BinaryValue(1), 1))
     return params, pk
 
 
 def shot_keys(device=None):
-    """(Params, ProvingKey) of the shot circuit on ``device``: the SRS by
-    hash-to-curve and keygen, built once per device."""
+    """(Params, ProvingKey) of the shot circuit on ``device``: the SRS and
+    the key from the artifact store (hash-to-curve and keygen when a file
+    is missing), once per device."""
     return _shot_keys(str(resolve_device(device)))
 
 
 @lru_cache(maxsize=None)
 def _shot_keys(device: str):
-    params = Params.new(ShotCircuit.K, device)
-    pk = keygen(params, ShotCircuit(BinaryValue(1), 1, BinaryValue(1), BinaryValue(1)))
+    params = cached_params(ShotCircuit.K, device)
+    pk = _cached_pk("shot", params, lambda: ShotCircuit(BinaryValue(1), 1, BinaryValue(1), BinaryValue(1)))
     return params, pk
 
 

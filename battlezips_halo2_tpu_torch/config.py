@@ -14,6 +14,7 @@
 | BZ_BATCH_ENGINE | batch_engine | batch prover executor: auto / device (both the card path; the proof tail follows BZ_PROOF_ENGINE) / host (the native engine end to end) |
 | BZ_BATCH_CHUNK / BZ_BATCH_QUOTIENT_CHUNK | batch_chunk / batch_quotient_chunk | columns per batched commit (256) / proofs per batched quotient (16) |
 | BZ_BATCH_TAIL_WORKERS | batch_tail_workers | threads for the per-proof evaluations + multiopen + IPA tail (1) |
+| BZ_DISPATCH_RETRIES / BZ_DISPATCH_BACKOFF_S | dispatch_retries / dispatch_backoff_s | attempts of a device call on a busy or unavailable card (3) / first backoff, doubled each retry (2.0 s) (ops/dispatch.py) |
 
 ``BZ_PROOF_ENGINE`` deviates from the reference on purpose: the reference
 defaults to ``auto``, which runs every phase of a proof on a domain of at
@@ -66,6 +67,8 @@ class FrameworkConfig:
     batch_chunk: int = 256
     batch_quotient_chunk: int = 16
     batch_tail_workers: int = 1
+    dispatch_retries: int = 3
+    dispatch_backoff_s: float = 2.0
 
     @staticmethod
     def from_env() -> "FrameworkConfig":
@@ -84,6 +87,8 @@ class FrameworkConfig:
             batch_chunk=int(os.environ.get("BZ_BATCH_CHUNK", "256")),
             batch_quotient_chunk=int(os.environ.get("BZ_BATCH_QUOTIENT_CHUNK", "16")),
             batch_tail_workers=int(os.environ.get("BZ_BATCH_TAIL_WORKERS", "1")),
+            dispatch_retries=int(os.environ.get("BZ_DISPATCH_RETRIES", "3")),
+            dispatch_backoff_s=float(os.environ.get("BZ_DISPATCH_BACKOFF_S", "2.0")),
         )
 
 

@@ -55,3 +55,6 @@ extern "C" int bz_field_op(int op, const uint32_t* consts, const void* a, const 
   }
   return (int)cudaGetLastError();
 }
+
+// The CUDA runtime's name of a status an entry returned (ops/cuda.py::check).
+extern "C" const char* bz_error_name(int status) { return cudaGetErrorName((cudaError_t)status); }

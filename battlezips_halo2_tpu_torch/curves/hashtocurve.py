@@ -14,7 +14,8 @@ reference at src/utils/pedersen.rs:17-27 and by halo2's SRS generation):
   hash("battlezips:hash2curve")("v"/"r") must reproduce the reference's
   published generators byte-for-byte.
 
-The resolved convention is cached in .artifacts/hashtocurve_params.json.
+The resolved parameters ship as package data, curves/hashtocurve_params.json
+(written by tools/derive_iso.py and tools/resolve_hashtocurve.py).
 """
 
 from __future__ import annotations

@@ -22,6 +22,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from functools import lru_cache
 
+from .. import artifacts
 from ..curves.host import PALLAS, Curve, Point
 from ..fields.host import FP
 from ..poly import lagrange_interpolate
@@ -138,34 +139,37 @@ def _derived_zs(name: str, generator: Point) -> list[int] | None:
        (z values run to ~5e5; hours per table in pure Python).
        Tests re-derive a sample from scratch and assert equality, so the
        committed file stays an artifact of our own search, not an input;
-    2. the .artifacts disk cache (written by a previous in-tree search,
-       e.g. for non-standard generators in tests)."""
+    2. the port's artifact store (artifacts.py), written by a previous
+       in-tree search. A file there that fails to read is reported and
+       searched again."""
     import json
     from pathlib import Path
 
-    here = Path(__file__).resolve()
     key = [str(k) for k in (generator[0], generator[1])]
-    for cache in (
-        here.parent / "data" / f"fixed_base_zs_{name}.json",
-        here.parent.parent.parent / ".artifacts" / f"fixed_base_zs_{name}.json",
-    ):
+    for cache in (Path(__file__).resolve().parent / "data" / f"fixed_base_zs_{name}.json", _zs_cache(name)):
         if cache.exists():
             try:
                 data = json.loads(cache.read_text())
                 if data.get("generator") == key:
                     return [int(z) for z in data["z"]]
-            except (ValueError, KeyError):
-                pass
+            except (ValueError, KeyError) as exc:
+                artifacts.report(cache, "unreadable, searching again", exc)
     return None
+
+
+def _zs_cache(name: str):
+    return artifacts.directory() / f"fixed_base_zs_{name}_v1.json"
 
 
 def _save_zs(name: str, generator: Point, zs: list[int]) -> None:
     import json
-    from pathlib import Path
 
-    cache = Path(__file__).resolve().parent.parent.parent / ".artifacts" / f"fixed_base_zs_{name}.json"
-    cache.parent.mkdir(exist_ok=True)
-    cache.write_text(json.dumps({"generator": [str(generator[0]), str(generator[1])], "z": zs}))
+    cache = _zs_cache(name)
+    data = {"generator": [str(generator[0]), str(generator[1])], "z": zs}
+    try:
+        artifacts.write_atomic(cache, json.dumps(data).encode())
+    except OSError as exc:
+        artifacts.report(cache, "save failed", exc)
 
 
 def _build_from_scratch(name: str, generator: Point) -> FixedBase:

@@ -9,7 +9,8 @@ build leaves nothing that a later one waits on.
 
 Every C entry launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` calls one with the tensors' device
-current and raises on anything but 0.
+current and raises :class:`CudaError` (the code and its name) on anything
+but 0.
 
 ``launches`` counts, per kernel, the launches made since the last
 :func:`reset_launches`. Each wrapper adds one exactly where it launches,
@@ -79,6 +80,8 @@ _SIGNATURES = {
     "bz_window_planes_resident": (ctypes.POINTER(_I64),),
     # consts, prog, n_instr, desc, n_pins, 4 sources, t_inv, out, log2 ext, lanes, n_temps, stream
     "bz_quotient_vm": (_P, _P, _INT, _P, _INT, _P, _P, _P, _P, _P, _P, _INT, _I64, _INT, _P),
+    # status -> cudaGetErrorName (returns a C string, not a status)
+    "bz_error_name": (_INT,),
 }
 
 
@@ -156,7 +159,7 @@ def load(path: Path) -> ctypes.CDLL:
         if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = ctypes.c_char_p if name == "bz_error_name" else ctypes.c_int
     return lib
 
 
@@ -212,9 +215,20 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+class CudaError(RuntimeError):
+    """A kernel entry returned a status other than cudaSuccess: ``code`` is
+    the cudaError_t value, ``name`` the runtime's name of it
+    (ops/dispatch.py classifies by the code)."""
+
+    def __init__(self, code: int, name: str, what: str):
+        super().__init__(f"{what}: CUDA error {code} ({name})")
+        self.code, self.name = code, name
+
+
 def check(status: int, what: str) -> None:
+    """Raise CudaError, named by cudaGetErrorName, unless ``status`` is 0."""
     if status != 0:
-        raise RuntimeError(f"{what}: CUDA error {status}")
+        raise CudaError(status, library().bz_error_name(status).decode(), what)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -63,6 +63,7 @@ from ..curves import limb as C
 from ..curves.host import Curve
 from ..fields import limb as L
 from ..fields.limb import FieldSpec, ints_to_limbs
+from .dispatch import device_call
 
 SCALAR_BITS = 256
 
@@ -510,7 +511,13 @@ COMPLETE_BELOW = 64
 def msm_many_table(curve: Curve, table, scalars, c: int | None = None, signed: bool | None = None) -> list:
     """B MSMs over a prepared point table (curves/limb.py::affine_table):
     scalars (B, N, 8) canonical limbs -> B affine results. The window is
-    auto-picked from N unless ``c`` (and ``signed``) is given."""
+    auto-picked from N unless ``c`` (and ``signed``) is given. A pure
+    function of its inputs, run again while the card is busy
+    (ops/dispatch.py)."""
+    return device_call(_msm_many_table, curve, table, scalars, c, signed, what="batched MSM")
+
+
+def _msm_many_table(curve: Curve, table, scalars, c, signed) -> list:
     spec = FieldSpec.make(curve.base.modulus)
     if c is None:
         c, auto_signed = auto_window(table.shape[0])

@@ -16,20 +16,29 @@ Pippenger over a cached G | W buffer; the prover's opening there is
 :func:`_create_open_proof_native`, with every vector as (n, 32) bytes, and
 the verifier's (``verify_open_proof``'s ``host``) takes the native
 s-vector and MSMs.
+
+The SRS persists in the port's artifact store (artifacts.py):
+``Params.save`` / ``load`` write and read k, G, U and W with both
+coordinates of every point, and :func:`cached_params` reads the file once a
+process (or derives it and writes it) and binds the points to each device.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from .. import artifacts
 from ..curves import limb as C
 from ..curves.host import VESTA, Point
 from ..fields.host import FP
 from ..fields.limb import FieldSpec, NLIMBS, ints_to_limbs, limbs_to_ints
 from ..ops.cuda import resolve_device
+from ..ops.dispatch import device_call
 from ..ops.engine import use_host_engine
 from ..ops.msm import host_msm, msm, msm_many_table
 from ..plonk.transcript import TranscriptRead, TranscriptWrite
@@ -66,6 +75,26 @@ class Params:
     def n(self) -> int:
         return 1 << self.k
 
+    # --- persistence (the artifact store, artifacts.py) -------------------
+    def save(self, path) -> None:
+        """Write k, G, U and W (both coordinates of every point, hex), and
+        nothing of the device: the SRS is bound to a device at load."""
+        data = {"k": self.k, "g": [_point_hex(p) for p in self.g], "u": _point_hex(self.u), "w": _point_hex(self.w)}
+        artifacts.write_atomic(Path(path), json.dumps(data).encode())
+
+    @staticmethod
+    def load(path, device=None) -> "Params":
+        """The SRS of a file written by :meth:`save`, on ``device``. Raises
+        ValueError unless G holds 2^k points and every point is on Vesta.
+        The file holds both coordinates, so a load decompresses nothing."""
+        dev = resolve_device(device)
+        data = json.loads(Path(path).read_text())
+        k = int(data["k"])
+        g = [_point_from_hex(h) for h in data["g"]]
+        if len(g) != 1 << k:
+            raise ValueError(f"{path}: {len(g)} G points for k = {k}")
+        return Params(k, g, _point_from_hex(data["u"]), _point_from_hex(data["w"]), dev)
+
     def gw_table(self) -> torch.Tensor:
         """(n + 1, 2, 8) device table of [G | W] (curves/limb.py::affine_table)."""
         if self._gw_table is None:
@@ -74,6 +103,38 @@ class Params:
 
     def g_table(self) -> torch.Tensor:
         return self.gw_table()[: self.n]
+
+
+def _point_hex(p: Point) -> list:
+    return [hex(p[0]), hex(p[1])]
+
+
+def _point_from_hex(xy: list) -> Point:
+    q = VESTA.base.modulus
+    x, y = int(xy[0], 16), int(xy[1], 16)
+    if not (0 <= x < q and 0 <= y < q and VESTA.is_on_curve((x, y))):
+        raise ValueError(f"({xy[0]}, {xy[1]}) is not a Vesta point")
+    return (x, y)
+
+
+SRS_SCHEMA = 1  # the file's layout: hex (x, y) of every point
+
+
+def cached_params(k: int, device=None) -> Params:
+    """The hash-to-curve SRS for 2^k rows on ``device``, from the artifact
+    store: the file's points are read once a process (or derived by
+    :meth:`Params.new` and written) and bound to each device asked for."""
+    dev = resolve_device(device)
+    path = artifacts.directory() / f"srs_h2c_k{k}_xy_v{SRS_SCHEMA}.json"
+
+    def load(p):
+        params = Params.load(p, "cpu")
+        if params.k != k:
+            raise ValueError(f"{p}: k = {params.k}, expected {k}")
+        return params
+
+    host = artifacts.cached(path, load, lambda: Params.new(k, "cpu"), Params.save)
+    return Params(k, host.g, host.u, host.w, dev)
 
 
 def _native_buffer(params: Params, name: str, points) -> bytes:
@@ -157,12 +218,18 @@ def commit_many(params: Params, polys: list, blinds: list, chunk: int | None = N
         return _host_commit_many(params, polys, blinds)
     points = []
     for a, b in _groups(len(polys), chunk):
-        flat = []
-        for p in polys[a:b]:
-            flat += [v % P for v in p] + [0] * (params.n - len(p))
-        coeffs = ints_to_limbs(flat, params.device).reshape(b - a, params.n, NLIMBS)
-        points += _commit_limbs(params, coeffs, blinds[a:b])
+        points += device_call(_commit_group, params, polys[a:b], blinds[a:b], what="commit_many")
     return points
+
+
+def _commit_group(params: Params, polys: list, blinds: list) -> list[Point]:
+    """One device pass of commit_many (a pure function of its inputs, run
+    again while the card is busy)."""
+    flat = []
+    for p in polys:
+        flat += [v % P for v in p] + [0] * (params.n - len(p))
+    coeffs = ints_to_limbs(flat, params.device).reshape(len(polys), params.n, NLIMBS)
+    return _commit_limbs(params, coeffs, blinds)
 
 
 def commit(params: Params, coeffs: list[int], blind: int) -> Point:
@@ -178,8 +245,6 @@ def commit_lagrange_many(params: Params, domain, values_list: list, blinds: list
     host once. On the native host engine (``engine`` as in commit_many)
     the batch iNTT feeds the native Pippenger in bytes, and the polys are
     PolyInts."""
-    from ..poly.transforms import lagrange_to_coeff_limbs
-
     assert len(values_list) == len(blinds)
     if not values_list:
         return [], []
@@ -198,13 +263,25 @@ def commit_lagrange_many(params: Params, domain, values_list: list, blinds: list
         return [PolyInts.wrap(native.bytes_arr_to_ints(row), row) for row in data], points
     polys, points = [], []
     for a, b in _groups(len(values_list), chunk):
-        flat = [x % P for v in values_list[a:b] for x in v]
-        vals = ints_to_limbs(flat, params.device).reshape(b - a, n, NLIMBS)
-        coeffs = lagrange_to_coeff_limbs(domain, vals)
-        ints = limbs_to_ints(coeffs)
-        polys += [ints[i : i + n] for i in range(0, len(ints), n)]
-        points += _commit_limbs(params, coeffs, blinds[a:b])
+        group_polys, group_points = device_call(_commit_lagrange_group, params, domain, values_list[a:b],
+                                                blinds[a:b], what="commit_lagrange_many")
+        polys += group_polys
+        points += group_points
     return polys, points
+
+
+def _commit_lagrange_group(params: Params, domain, values_list: list, blinds: list) -> tuple[list, list]:
+    """One device pass of commit_lagrange_many (a pure function of its
+    inputs, run again while the card is busy): the iNTT and the commitment
+    MSMs of a group of columns."""
+    from ..poly.transforms import lagrange_to_coeff_limbs
+
+    n = domain.n
+    flat = [x % P for v in values_list for x in v]
+    vals = ints_to_limbs(flat, params.device).reshape(len(values_list), n, NLIMBS)
+    coeffs = lagrange_to_coeff_limbs(domain, vals)
+    ints = limbs_to_ints(coeffs)
+    return [ints[i : i + n] for i in range(0, len(ints), n)], _commit_limbs(params, coeffs, blinds)
 
 
 def lagrange_basis_commitment(params: Params, domain, row: int) -> Point:

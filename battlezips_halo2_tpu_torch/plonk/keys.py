@@ -11,6 +11,7 @@ become extra fixed columns, combined by plonk/compress.py.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from pathlib import Path
 
 from ..fields.host import FP
 from ..pcs.ipa import Params, commit_many
@@ -30,6 +31,9 @@ class PermutationData:
     sigmas: list  # per column: length-n list of encoded image values
     sigma_polys: list  # coeff form
     sigma_commitments: list
+
+    def __getstate__(self):
+        return {**self.__dict__, "sigma_polys": _plain(self.sigma_polys)}
 
 
 @dataclass
@@ -52,12 +56,64 @@ class VerifyingKey:
         self.digest = vk_transcript_repr(self)
         return self.digest
 
+    def __getstate__(self):
+        return _without(self.__dict__, VK_PROCESS_CACHES)
+
+
+# Caches the prover attaches to a key for the life of a process; they hold
+# tensors on a card or native handles, and a pickled key leaves them out.
+VK_PROCESS_CACHES = ("_native_quotient_evaluator", "_quotient_evaluators")  # plonk/prover.py, batch_prover.py
+PK_PROCESS_CACHES = ("_native_wrapped",)  # plonk/batch_prover.py
+
+
+def _without(state: dict, names: tuple) -> dict:
+    return {k: v for k, v in state.items() if k not in names}
+
+
+def _plain(polys: list) -> list:
+    """Plain int lists: a poly from a native route (poly/polyints.py's
+    PolyInts) also carries its bytes, which a pickled key leaves out."""
+    return [list(p) for p in polys]
+
+
+PK_SCHEMA = 1  # the pickled layout of ProvingKey / VerifyingKey / ConstraintSystem
+
 
 @dataclass
 class ProvingKey:
     vk: VerifyingKey
     fixed_values: list  # per fixed column (incl selectors): length-n ints
     fixed_polys: list  # coeff form
+
+    def __getstate__(self):
+        return {**_without(self.__dict__, PK_PROCESS_CACHES), "fixed_polys": _plain(self.fixed_polys)}
+
+    # --- persistence (the artifact store, artifacts.py) -------------------
+    def save(self, path) -> None:
+        """Pickle the key's host values (ints, lists, the constraint
+        system) through a temporary name and a rename; the process caches
+        stay attached in memory and stay out of the file."""
+        import pickle
+
+        from .. import artifacts
+
+        artifacts.write_atomic(Path(path), pickle.dumps(self, protocol=pickle.HIGHEST_PROTOCOL))
+
+    @staticmethod
+    def load(path) -> "ProvingKey":
+        """A key written by :meth:`save`. Raises ValueError unless the
+        file holds a ProvingKey whose vk digest, recomputed, is the stored
+        one. Only files this package wrote are to be loaded: unpickling
+        runs code."""
+        import pickle
+
+        pk = pickle.loads(Path(path).read_bytes())
+        if not isinstance(pk, ProvingKey):
+            raise ValueError(f"{path} holds a {type(pk).__name__}, not a ProvingKey")
+        stored = pk.vk.digest
+        if pk.vk.compute_digest() != stored:
+            raise ValueError(f"{path}: the vk digest does not match the stored one")
+        return pk
 
 
 def num_fixed_total(cs: ConstraintSystem) -> int:

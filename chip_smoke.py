@@ -10,6 +10,21 @@ from the root of a checkout. In order, it
    and reads the card's integer multiply rate (SMs, maximum SM clock) and
    the multiplies of one Montgomery product (SASS of the built library) for
    the operations bounds;
+1b. drives the serving path (``run_serving``), its counts set to 0 before it
+   and read after: with no port artifact yet (``.artifacts/torch/``), a
+   cold ``tools/torch_serve.py --bench-cold`` (a fresh server process
+   derives the SRS and keys and writes them) and a warm one (it loads them;
+   no file is rewritten), then the server in this process (keys loaded
+   from the files, vk digests equal to the golden ones): a shot, a board, a
+   batched session of one game and two shots, verify_board on a good and a
+   tampered proof, and status, under ``BZ_PROOF_ENGINE=device`` and then
+   ``auto``, twice each; every returned proof verifies here, the tampered
+   one is refused, a board proof launches K1, K2, K3, K4 and K7 under
+   device and nothing under auto. It prints cold-to-ready, cold-to-first-
+   proof, warm-to-ready, each op's seconds and launches on each engine and
+   each artifact's size. The main path below then proves on keys loaded
+   afresh from those files, so its golden bytes are the full-size check of
+   persistence;
 2. holds K1-K4, K6 and K7 bit-exact (tolerance 0) against their plain
    PyTorch versions on the same CUDA tensors, including the identity,
    P == Q and P == -Q cases of the point kernels, and times both. K2 and
@@ -31,7 +46,7 @@ from the root of a checkout. In order, it
 3. drives the port's proof path through its public API, reading the
    kernels' launch counts around every phase:
 
-   - the shot circuit (k = 11): keys, ``api.prove_shot`` with
+   - the shot circuit (k = 11): keys (from the artifact store), ``api.prove_shot`` with
      ``random.Random(7)`` on the inputs of the golden vector, whose bytes
      must equal ``tests/golden/shot_k11.json``, ``api.verify_shot`` (true),
      a tampered proof (false), and a second proof with fresh randomness;
@@ -80,8 +95,9 @@ from the root of a checkout. In order, it
    them with the card setting the pace (the host-paced times beside), and
    K9's raw and noop as their one PyTorch call; K8 and K9 must each have
    launched on this path;
-6. prints a JSON line of per-kernel numbers, the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+6. prints the script's total seconds, a JSON line of per-kernel numbers,
+   the card's name and power limit, and last ``{"ok": true, "device":
+   {...}}``.
 
 Without a CUDA card, or outside a checkout, it exits non-zero and prints
 no result.
@@ -104,6 +120,8 @@ GOLDEN_BOARD = ROOT / "tests" / "golden" / "board_k12.json"
 PALLAS_KERNELS = "battlezips_halo2_tpu/ops/pallas_kernels.py"
 EXP_STEP_T = "tools/exp_step_t.py"
 MICROBENCHMARK = ROOT / "tools" / "torch_exp_step_t.py"
+SERVER = ROOT / "tools" / "torch_serve.py"
+T_START = time.time()
 
 # NVIDIA H100 SXM data sheet (dense, 700 W): the HBM rate. The field
 # kernels are integer multiply chains: their operations bound is the card's
@@ -835,7 +853,7 @@ def run_shot(dev, timed: Phases) -> None:
 
     golden = json.loads(GOLDEN.read_text())
     board = Board.from_deck(Deck.from_placements(GOLDEN_PLACEMENTS))
-    params, pk = timed("shot keys (Params.new(11) + keygen)", lambda: api.shot_keys(dev))
+    params, pk = timed("shot keys (loaded from the artifact store)", lambda: api.shot_keys(dev))
     os.environ["BZ_TORCH_TRACE"] = "1"
     try:
         proof = timed(
@@ -869,7 +887,7 @@ def run_board(dev, timed: Phases, tag: str) -> None:
     from battlezips_halo2_tpu_torch import api
 
     golden = json.loads(GOLDEN_BOARD.read_text())
-    params, pk = timed(f"board keys (Params.new(12) + keygen) [{tag}]", lambda: api.board_keys(dev))
+    params, pk = timed(f"board keys (loaded from the artifact store) [{tag}]", lambda: api.board_keys(dev))
     if hex(pk.vk.digest) != golden["vk_digest"]:
         raise AssertionError("board vk digest differs from tests/golden/board_k12.json")
     os.environ["BZ_TORCH_TRACE"] = "1"
@@ -1177,6 +1195,150 @@ def run_native_engine(dev, timed: Phases, session_want: list) -> dict:
     return report
 
 
+SERVE_KERNELS = ("K1", "K2", "K3", "K4", "K7")  # a default board proof on the device engine
+SERVE_ROUNDS = 2  # each op twice on each engine: the first request, then a steady one
+
+
+def _bench_cold(tag: str) -> dict:
+    """``tools/torch_serve.py --bench-cold`` in a fresh process (its
+    server's stderr passes through); -> its JSON line's object."""
+    out = subprocess.run([sys.executable, str(SERVER), "--bench-cold"], cwd=ROOT, stdout=subprocess.PIPE, text=True,
+                         timeout=600, check=False)
+    if out.returncode != 0:
+        raise AssertionError(f"torch_serve.py --bench-cold ({tag}) exited {out.returncode}: {out.stdout[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _serve_requests(tampered_board) -> list:
+    """(name, request) of one round of the in-process server: a shot, a
+    board, a batched session of one game and two shots, verify_board on a
+    good and a tampered proof, status."""
+    from battlezips_halo2_tpu_torch.utils import Board, Deck
+
+    state = Board.from_deck(Deck.from_placements(GOLDEN_PLACEMENTS)).state()
+    ships = [list(p) for p in GOLDEN_PLACEMENTS]
+    return [
+        ("prove_shot", {"op": "prove_shot", "state_hex": hex(state.value), "trapdoor": 0xBEEF, "shot": [3, 3],
+                        "hit": True}),
+        ("prove_board", {"op": "prove_board", "ships": ships, "trapdoor": 0xBEEF}),
+        ("prove_session", {"op": "prove_session", "games": [ships], "shots_per_game": 2, "batched": True}),
+        ("verify_board", lambda board: {"op": "verify_board", "commitment": board["commitment"],
+                                        "proof_hex": board["proof_hex"]}),
+        ("verify_board (tampered)", lambda board: {"op": "verify_board", "commitment": board["commitment"],
+                                                   "proof_hex": tampered_board(board["proof_hex"])}),
+        ("status", {"op": "status"}),
+    ]
+
+
+def _check_served(api, dev, name: str, resp: dict) -> None:
+    """Every proof the server returned verifies in this process; verify_board
+    answers True for the good proof and False for the tampered one."""
+    from battlezips_halo2_tpu_torch.utils import Board, Deck
+
+    if not resp.get("ok"):
+        raise AssertionError(f"the server refused {name}: {resp}")
+    if name == "prove_shot":
+        proof = api.ShotProof(tuple(resp["commitment"]), resp["shot"], resp["hit"], bytes.fromhex(resp["proof_hex"]))
+        valid = api.verify_shot(proof, device=dev)
+    elif name == "prove_board":
+        valid = api.verify_board(api.BoardProof(tuple(resp["commitment"]), bytes.fromhex(resp["proof_hex"])), device=dev)
+    elif name == "prove_session":
+        commitment = tuple(resp["commitments"][0])
+        state = Board.from_deck(Deck.from_placements(GOLDEN_PLACEMENTS)).state()
+        cells = [(i * 3 % 10) * 10 + i for i in range(len(resp["shot_proofs"]))]  # shot i at (i, 3 i): api's layout
+        shots = [api.ShotProof(commitment, 1 << cell, int(state.bit(cell)), bytes.fromhex(h))
+                 for cell, h in zip(cells, resp["shot_proofs"])]
+        boards = [api.BoardProof(commitment, bytes.fromhex(resp["board_proofs"][0]))]
+        valid = len(shots) == 2 and api.verify_session(api.GameSession(boards, shots), device=dev)
+    elif name.startswith("verify_board"):
+        valid = resp["valid"] is (name == "verify_board")
+    else:
+        valid = resp["proofs_served"] > 0 and resp["device_error"] is None
+    if not valid:
+        raise AssertionError(f"the server's {name} did not check out: {json.dumps(resp)[:400]}")
+
+
+def run_serving(dev, timed: Phases) -> dict:
+    """The serving path (tools/torch_serve.py) on the artifact store: a cold
+    start (no port artifact yet: it derives the SRS and keys and writes
+    them), a warm start (it loads them; no file is rewritten), then the
+    server in this process: every op under BZ_PROOF_ENGINE=device, then
+    under auto, SERVE_ROUNDS times each, every returned proof verified
+    here. The loaded keys' vk digests must be the golden ones; a board proof
+    launches K1, K2, K3, K4 and K7 under device and nothing under auto.
+    -> the phase's numbers."""
+    from battlezips_halo2_tpu_torch import api, artifacts, native
+
+    card = card_line()
+    store = artifacts.directory()
+    if store.exists() and any(store.iterdir()):
+        raise AssertionError(f"port artifacts exist before the cold start: {sorted(p.name for p in store.iterdir())}")
+    report = {"card": card, "cold": _bench_cold("cold")}
+    files = {p.name: p.stat() for p in sorted(store.iterdir())}
+    report["artifact_bytes"] = {name: st.st_size for name, st in files.items()}
+    if len(files) != 4:
+        raise AssertionError(f"the cold start wrote {sorted(files)}, not the two SRS and the two keys")
+    report["warm"] = _bench_cold("warm")
+    if {p.name: p.stat().st_mtime_ns for p in store.iterdir()} != {n: st.st_mtime_ns for n, st in files.items()}:
+        raise AssertionError("the warm start rewrote an artifact instead of loading it")
+    for tag in ("cold", "warm"):
+        r = report[tag]
+        log(f"serving [{card}]: {tag} start: ready {r['detail']['cold_to_ready_s']:.3f} s, first proof (shot) "
+            f"{r['value']:.3f} s (its latency {r['detail']['shot_latency_s']:.3f}), board "
+            f"{r['detail']['board_latency_s']:.3f} s")
+    for name, size in report["artifact_bytes"].items():
+        log(f"serving: artifact {name}: {size} bytes")
+
+    serve = _load_tool(SERVER, "torch_serve")
+    name = "serve: Server() in process (keys from the artifact store)"
+    server = timed(name, lambda: serve.Server())
+    report["in_process_ready_s"] = timed.seconds[name]
+    for circuit, keys, golden in (("shot", api.shot_keys(dev), GOLDEN), ("board", api.board_keys(dev), GOLDEN_BOARD)):
+        if hex(keys[1].vk.digest) != json.loads(golden.read_text())["vk_digest"]:
+            raise AssertionError(f"the loaded {circuit} key's vk digest differs from {golden.name}")
+    log("serving: the loaded shot and board keys' vk digests equal the golden ones")
+    t = time.time()
+    native.build()
+    native.load()
+    log(f"serving: native host library built for the auto engine in {time.time() - t:.3f} s")
+
+    ops = {}
+    for engine in ("device", "auto"):
+        for i in range(SERVE_ROUNDS):
+            board = None
+            for name, req in _serve_requests(_tampered_hex):
+                req = req(board) if callable(req) else req
+                phase = f"serve {name} #{i} [{engine}]"
+                resp = _with_env({"BZ_PROOF_ENGINE": engine}, lambda: timed(phase, lambda: server.handle(req)))
+                board = resp if name == "prove_board" else board
+                _check_served(api, dev, name, resp)
+                entry = ops.setdefault(engine, {}).setdefault(name, {"seconds": [], "latency_s": [], "launches": []})
+                entry["seconds"].append(timed.seconds[phase])
+                entry["latency_s"].append(resp.get("latency_s"))
+                entry["launches"].append({k: v for k, v in timed.launches[phase].items() if v})
+            launched = timed.launches[f"serve prove_board #{i} [{engine}]"]
+            if engine == "device" and any(launched[k] <= 0 for k in SERVE_KERNELS):
+                raise AssertionError(f"prove_board on the device engine did not launch all of {SERVE_KERNELS}: {launched}")
+            if engine == "auto" and any(launched.values()):
+                raise AssertionError(f"prove_board under auto launched kernels: {launched}")
+    report["ops"] = ops
+    for engine, by_op in ops.items():
+        for name, r in by_op.items():
+            log(f"serving [{card}] [{engine}]: {name}: seconds {', '.join(f'{x:.4f}' for x in r['seconds'])}; "
+                f"launches {r['launches']}")
+    log("serving: every server proof verified here, the tampered board refused; prove_board launched "
+        f"{', '.join(SERVE_KERNELS)} under device and nothing under auto")
+    # the main path proves on fresh keys, loaded from the files, with no cache of this phase attached
+    artifacts.forget()
+    api._shot_keys.cache_clear()
+    api._board_keys.cache_clear()
+    return report
+
+
+def _tampered_hex(proof_hex: str) -> str:
+    return _tampered(bytes.fromhex(proof_hex)).hex()
+
+
 def run_microbenchmark(dev) -> tuple[dict, dict]:
     """The K8 / K9 path: tools/torch_exp_step_t.py at the reference's
     shapes, every K9 op. The tool holds each kernel bit for bit against its
@@ -1301,6 +1463,13 @@ def main() -> int:
         f"(CIOS count {MAD_PER_MONT_MUL}), {MONT_MUL_RESULTS} results; the carry-chain product of K8 / K9: "
         f"{cc_instrs} multiply instructions, {cc_results} results (the bounds count {MONT_MUL_RESULTS})")
 
+    # the serving path: tools/torch_serve.py cold and warm, then in process on both engines
+    cuda.reset_launches()
+    t = time.time()
+    serving = run_serving(dev, Phases())
+    serving["launches"] = dict(cuda.launches)
+    log(f"phase serving: {time.time() - t:.3f} s, launches {serving['launches']}")
+
     rng = random.Random(2024)
     t = time.time()
     lane_wise = {"K1": check_k1(dev, rng, 1 << 13, 1 << 14)}
@@ -1389,9 +1558,10 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "shape": r["shape"], **extra,
         })
+    log(f"chip_smoke total: {time.time() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels, "phases_s": timed.seconds, "row_configuration_launches": row_launches,
-                      "session_launches": session_launches, "native_engine": native_report, "ops_per_s": OPS_PER_S,
-                      "mont_mul_results": MONT_MUL_RESULTS}), flush=True)
+                      "session_launches": session_launches, "native_engine": native_report, "serving": serving,
+                      "ops_per_s": OPS_PER_S, "mont_mul_results": MONT_MUL_RESULTS}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()
