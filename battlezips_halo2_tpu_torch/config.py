@@ -15,6 +15,8 @@
 | BZ_BATCH_CHUNK / BZ_BATCH_QUOTIENT_CHUNK | batch_chunk / batch_quotient_chunk | columns per batched commit (256) / proofs per batched quotient (16) |
 | BZ_BATCH_TAIL_WORKERS | batch_tail_workers | threads for the per-proof evaluations + multiopen + IPA tail (1) |
 | BZ_DISPATCH_RETRIES / BZ_DISPATCH_BACKOFF_S | dispatch_retries / dispatch_backoff_s | attempts of a device call on a busy or unavailable card (3) / first backoff, doubled each retry (2.0 s) (ops/dispatch.py) |
+| BZ_MESH_DP / BZ_MESH_TP | mesh.dp / mesh.tp | shape of parallel/context.py::mesh_from_config |
+| BZ_NUM_PROCS / BZ_PROC_ID / BZ_COORDINATOR | procs / proc_id / coordinator | torch.distributed wiring of parallel/distributed.py (1 / 0 / 127.0.0.1:12807) |
 
 ``BZ_PROOF_ENGINE`` deviates from the reference on purpose: the reference
 defaults to ``auto``, which runs every phase of a proof on a domain of at
@@ -33,7 +35,7 @@ give the same bits as the default one.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 PROOF_ENGINES = ("device", "auto", "host")
@@ -49,6 +51,17 @@ def _choice(name: str, choices: tuple) -> str:
     if value not in choices:
         raise ValueError(f"{name} must be one of {choices}, got {value!r}")
     return value
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Shape of the parallel layer's mesh: data-parallel (dp) by
+    tensor-parallel (tp) shards. None = inferred from the visible cards
+    (parallel/context.py::mesh_from_config)."""
+
+    dp: int | None = None
+    tp: int | None = None
+    axis_names: tuple = ("dp", "tp")
 
 
 @dataclass(frozen=True)
@@ -69,6 +82,10 @@ class FrameworkConfig:
     batch_tail_workers: int = 1
     dispatch_retries: int = 3
     dispatch_backoff_s: float = 2.0
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    procs: int = 1
+    proc_id: int = 0
+    coordinator: str = "127.0.0.1:12807"
 
     @staticmethod
     def from_env() -> "FrameworkConfig":
@@ -89,6 +106,13 @@ class FrameworkConfig:
             batch_tail_workers=int(os.environ.get("BZ_BATCH_TAIL_WORKERS", "1")),
             dispatch_retries=int(os.environ.get("BZ_DISPATCH_RETRIES", "3")),
             dispatch_backoff_s=float(os.environ.get("BZ_DISPATCH_BACKOFF_S", "2.0")),
+            mesh=MeshConfig(
+                dp=int(os.environ["BZ_MESH_DP"]) if "BZ_MESH_DP" in os.environ else None,
+                tp=int(os.environ["BZ_MESH_TP"]) if "BZ_MESH_TP" in os.environ else None,
+            ),
+            procs=int(os.environ.get("BZ_NUM_PROCS", "1")),
+            proc_id=int(os.environ.get("BZ_PROC_ID", "0")),
+            coordinator=os.environ.get("BZ_COORDINATOR", "127.0.0.1:12807"),
         )
 
 

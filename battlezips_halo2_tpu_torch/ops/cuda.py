@@ -13,8 +13,10 @@ current and raises :class:`CudaError` (the code and its name) on anything
 but 0.
 
 ``launches`` counts, per kernel, the launches made since the last
-:func:`reset_launches`. Each wrapper adds one exactly where it launches,
-under a lock, so the counts stay exact when several threads prove at once
+:func:`reset_launches`, and ``entry_launches`` per C entry (K3's window
+kernel ``bz_window_sums`` apart from its lane-wise ``bz_point_add``). Each
+wrapper adds one exactly where it launches, under a lock, so the counts
+stay exact when several threads prove at once
 (``api.prove_session(workers > 1)``).
 """
 
@@ -42,6 +44,7 @@ NVCC_FLAGS = (
 
 KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")
 launches = {name: 0 for name in KERNELS}
+entry_launches: dict = {}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -89,11 +92,14 @@ def reset_launches() -> None:
     with _count_lock:
         for name in KERNELS:
             launches[name] = 0
+        entry_launches.clear()
 
 
-def count(name: str) -> None:
+def count(name: str, entry: str | None = None) -> None:
     with _count_lock:
         launches[name] += 1
+        if entry is not None:
+            entry_launches[entry] = entry_launches.get(entry, 0) + 1
 
 
 def _source_hash(src: Path, flags: tuple) -> str:
@@ -248,7 +254,7 @@ def launch(kernel: str, entry: str, on: torch.Tensor, *args) -> None:
     with torch.cuda.device(on.device):
         status = getattr(library(), entry)(*args, stream(on))
     check(status, f"{kernel} {entry}")
-    count(kernel)
+    count(kernel, entry)
 
 
 @functools.lru_cache(maxsize=None)

@@ -186,13 +186,39 @@ def _engine_host(engine: str | None, n: int) -> bool:
     return engine == "host"
 
 
+def _active_mesh():
+    """The active mesh of parallel/context.py if it has several shards,
+    else None. Under it every commitment is the sharded MSM, ahead of the
+    engine routing, as in the reference."""
+    from ..parallel.context import get_mesh, mesh_is_active
+
+    return get_mesh() if mesh_is_active() else None
+
+
+def _gw_shards(params: Params, mesh):
+    """The [G | W] table cut over ``mesh`` (parallel/msm.py::shard_table),
+    cached on ``params`` per mesh key: cut once, not per commitment."""
+    from ..parallel.msm import shard_table
+
+    cache = params.__dict__.setdefault("_mesh_tables", {})
+    if mesh.key not in cache:
+        cache[mesh.key] = shard_table(VESTA, params.gw_table(), mesh)
+    return cache[mesh.key]
+
+
 def _commit_limbs(params: Params, coeffs: torch.Tensor, blinds: list) -> list[Point]:
     """<coeffs_i, G> + [blind_i] W for a (B, <= n, 8) canonical coefficient
-    tensor: one batched device MSM over [G | W]."""
+    tensor: one batched device MSM over [G | W], or under an active mesh
+    the sharded MSM (parallel/msm.py)."""
     b = coeffs.shape[0]
     scalars = torch.zeros(b, params.n + 1, NLIMBS, dtype=torch.int32, device=params.device)
     scalars[:, : coeffs.shape[1]] = coeffs
     scalars[:, params.n] = ints_to_limbs([v % P for v in blinds], params.device)
+    mesh = _active_mesh()
+    if mesh is not None:
+        from ..parallel.msm import sharded_msm_many_table
+
+        return sharded_msm_many_table(VESTA, _gw_shards(params, mesh), scalars, mesh)
     return msm_many_table(VESTA, params.gw_table(), scalars)
 
 
@@ -209,12 +235,12 @@ def commit_many(params: Params, polys: list, blinds: list, chunk: int | None = N
     """Commit a batch of coefficient polynomials (each <= n long), ``chunk``
     of them per batched device MSM (None: all at once), or one native MSM
     each on the host engine (``engine``: "host" / "device", None routes by
-    ops/engine.py)."""
+    ops/engine.py). An active mesh takes them first: sharded device MSMs."""
     assert len(polys) == len(blinds)
     if not polys:
         return []
     assert all(len(p) <= params.n for p in polys)
-    if _engine_host(engine, params.n):
+    if _active_mesh() is None and _engine_host(engine, params.n):
         return _host_commit_many(params, polys, blinds)
     points = []
     for a, b in _groups(len(polys), chunk):
@@ -244,13 +270,14 @@ def commit_lagrange_many(params: Params, domain, values_list: list, blinds: list
     run on the device in one pass, and the coefficients come back to the
     host once. On the native host engine (``engine`` as in commit_many)
     the batch iNTT feeds the native Pippenger in bytes, and the polys are
-    PolyInts."""
+    PolyInts. An active mesh takes them first: the sharded iNTT
+    (poly/transforms.py) and the sharded MSMs on the device."""
     assert len(values_list) == len(blinds)
     if not values_list:
         return [], []
     n = domain.n
     assert all(len(v) == n for v in values_list)
-    if _engine_host(engine, n):
+    if _active_mesh() is None and _engine_host(engine, n):
         from .. import native
 
         which = native.which_for(P)

@@ -7,6 +7,14 @@ functions wrap them for lists of Python-int columns, converting only at the
 edges, as the reference's poly/transforms.py does; where BZ_PROOF_ENGINE
 sends the domain to the native host engine (ops/engine.py) they run there
 instead and return PolyInts (poly/polyints.py) that carry their bytes.
+
+Under an active mesh (parallel/context.py) the four ``batch_*`` transforms
+and :func:`lagrange_to_coeff_limbs` (the iNTT of
+``pcs/ipa.py::commit_lagrange_many``) run the 4-step NTT of
+parallel/ntt.py over the mesh, ahead of the engine routing, where its
+shape gate takes the size (:func:`_maybe_sharded`). The quotient's own
+extended transforms (ops/gate_eval.py) stay unsharded, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -30,7 +38,26 @@ def _scale(g: int, n: int, device) -> torch.Tensor:
     return D.make_scale_vector(FP, g, n, FP_SPEC, device)
 
 
+def _maybe_sharded(batch, n: int, omega: int, pre_g: int = 1, post_g: int = 1, post_k: int = 1):
+    """Under an active mesh whose shape gate takes size n, the transform
+    (scale by pre_g^i, NTT with omega, scale by post_k post_g^i) of the
+    (B, n, 8) canonical batch that ``batch()`` builds, over the mesh
+    (parallel/ntt.py::sharded_transform_batch); else None (a size the gate
+    refuses is counted and named there)."""
+    from ..parallel.context import get_mesh, mesh_is_active
+    from ..parallel.ntt import sharded_transform_batch, sharded_transform_supported
+
+    if not mesh_is_active() or not sharded_transform_supported(get_mesh(), n):
+        return None
+    return sharded_transform_batch(get_mesh(), n, omega, batch(), pre_g, post_g, post_k)
+
+
 def lagrange_to_coeff_limbs(domain: EvaluationDomain, vals: torch.Tensor) -> torch.Tensor:
+    out = _maybe_sharded(lambda: vals, domain.n, pow(domain.omega, -1, P), post_k=pow(domain.n, -1, P))
+    return out if out is not None else _lagrange_to_coeff_unsharded(domain, vals)
+
+
+def _lagrange_to_coeff_unsharded(domain: EvaluationDomain, vals: torch.Tensor) -> torch.Tensor:
     dev = vals.device
     plan_inv = D.plan_for(P, domain.n, pow(domain.omega, -1, P), str(dev))
     m = D.intt(plan_inv, L.to_mont(FP_SPEC, vals), _n_inv(domain.n, dev))
@@ -104,15 +131,22 @@ def _maybe_native(columns: list, n: int, omega: int, pre_g: int = 1, post_g: int
 def batch_lagrange_to_coeff(domain: EvaluationDomain, columns: list, device) -> list[list[int]]:
     if not columns:
         return []
-    out = _maybe_native(columns, domain.n, pow(domain.omega, -1, P), post_k=pow(domain.n, -1, P))
+    n, omega_inv, n_inv = domain.n, pow(domain.omega, -1, P), pow(domain.n, -1, P)
+    out = _maybe_sharded(lambda: _to_limbs(columns, n, device), n, omega_inv, post_k=n_inv)
+    if out is not None:
+        return _to_lists(out)
+    out = _maybe_native(columns, n, omega_inv, post_k=n_inv)
     if out is not None:
         return out
-    return _to_lists(lagrange_to_coeff_limbs(domain, _to_limbs(columns, domain.n, device)))
+    return _to_lists(_lagrange_to_coeff_unsharded(domain, _to_limbs(columns, n, device)))
 
 
 def batch_coeff_to_lagrange(domain: EvaluationDomain, polys: list, device) -> list[list[int]]:
     if not polys:
         return []
+    out = _maybe_sharded(lambda: _to_limbs(polys, domain.n, device), domain.n, domain.omega)
+    if out is not None:
+        return _to_lists(out)
     out = _maybe_native(polys, domain.n, domain.omega)
     if out is not None:
         return out
@@ -122,19 +156,25 @@ def batch_coeff_to_lagrange(domain: EvaluationDomain, polys: list, device) -> li
 def batch_coeff_to_extended(domain: EvaluationDomain, polys: list, device) -> list[list[int]]:
     if not polys:
         return []
-    out = _maybe_native(polys, domain.extended_n, domain.extended_omega, pre_g=domain.g_coset)
+    ext = domain.extended_n
+    out = _maybe_sharded(lambda: _to_limbs(polys, ext, device), ext, domain.extended_omega, pre_g=domain.g_coset)
+    if out is not None:
+        return _to_lists(out)
+    out = _maybe_native(polys, ext, domain.extended_omega, pre_g=domain.g_coset)
     if out is not None:
         return out
-    limbs = _to_limbs(polys, domain.extended_n, device)
-    return _to_lists(coeff_to_extended_limbs(domain, limbs))
+    return _to_lists(coeff_to_extended_limbs(domain, _to_limbs(polys, ext, device)))
 
 
 def batch_extended_to_coeff(domain: EvaluationDomain, evals: list, device) -> list[list[int]]:
     if not evals:
         return []
     ext = domain.extended_n
-    out = _maybe_native(evals, ext, pow(domain.extended_omega, -1, P), post_g=domain.g_coset_inv,
-                        post_k=pow(ext, -1, P))
+    omega_inv, post = pow(domain.extended_omega, -1, P), dict(post_g=domain.g_coset_inv, post_k=pow(ext, -1, P))
+    out = _maybe_sharded(lambda: _to_limbs(evals, ext, device), ext, omega_inv, **post)
+    if out is not None:
+        return _to_lists(out)
+    out = _maybe_native(evals, ext, omega_inv, **post)
     if out is not None:
         return out
     return _to_lists(extended_to_coeff_limbs(domain, _to_limbs(evals, ext, device)))

@@ -83,6 +83,23 @@ from the root of a checkout. In order, it
    (``tools/torch_profile_shot.py``'s ``profiled``) for its device idle
    share, and times the IPA's 3-point MSM on K7 and natively. Every time
    prints beside the card's name and power limit;
+3c. the parallel phase (``run_parallel``), on a mesh of one shard a
+   card, or of two shards on ``cuda:0`` when one card is visible (the
+   mesh is printed on a line of its own): the golden board proof under ``use_mesh`` in the default and
+   the row configuration (golden bytes, accepted, a tampered copy
+   refused; a steady sharded proof beside a one-card one, equal bytes;
+   device busy per card of each through ``tools/torch_profile_shot.py``),
+   the board domain's four basis transforms (n = 2^12 and 2^15) and an
+   11-column commit batch over its [G | W] sharded against the unsharded
+   kernels, bit for bit. It counts the launches of each configuration's
+   steady sharded proof from 0 (the ``parallel_launches`` of the kernels
+   line) and holds them against a one-card proof's: the lane-wise K3 must
+   fold the partials, K2 never launch in the sharded commitments, and the
+   NTT stages must grow; no transform may be refused by the NTT's shape
+   gate. With two cards visible it also runs
+   ``tools/torch_multihost_ntt.py --procs 2`` over NCCL; with one it says
+   so and runs nothing in its place. Every time prints beside the card's
+   name and power limit;
 4. holds K5 bit-exact against its plain version at the board's own
    extended-domain shape (read from the board's vk), and times it; holds
    K1's VM kernel bit-exact against the plain executor on the card (one
@@ -157,6 +174,8 @@ KERNELS = {
     "K9": ("op_chain (chained field ops)", "csrc/op_chain.cu", f"{EXP_STEP_T}:210"),
 }
 PROOF_PATH_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+# the kernels of a sharded board proof, per configuration
+PARALLEL_PATH_KERNELS = {"default": ("K1", "K3", "K4", "K7"), "row": ("K5", "K6", "K7")}
 MICRO_PATH_KERNELS = ("K8", "K9")
 
 GOLDEN_PLACEMENTS = [(3, 3, True), (5, 4, False), (0, 1, False), (0, 5, True), (6, 1, False)]
@@ -796,30 +815,41 @@ def check_k2_k7(dev, rng: random.Random, n_points: int = 2049) -> tuple[dict, di
     return rows["K2"], rows["K7"]
 
 
+def _entry_delta(before: dict) -> dict:
+    """Launches per C entry since the counts ``before``
+    (ops/cuda.py::entry_launches)."""
+    from battlezips_halo2_tpu_torch.ops import cuda
+
+    return {k: v - before.get(k, 0) for k, v in cuda.entry_launches.items() if v != before.get(k, 0)}
+
+
 class Phases:
     """Runs the main path's phases: wall seconds (ending in a device
-    synchronize) and kernel launch deltas of each."""
+    synchronize) and kernel launch deltas of each, per kernel and per C
+    entry. Every bucket pass must be followed by one window aggregation:
+    K3's window kernel (K6's under the row flags)."""
 
     def __init__(self):
-        self.seconds, self.launches = {}, {}
+        self.seconds, self.launches, self.entries = {}, {}, {}
 
     def __call__(self, name, fn):
         import torch
 
         from battlezips_halo2_tpu_torch.ops import cuda
 
-        before = dict(cuda.launches)
+        before, before_entries = dict(cuda.launches), dict(cuda.entry_launches)
         t = time.time()
         out = fn()
         torch.cuda.synchronize()
         self.seconds[name] = time.time() - t
         delta = self.launches[name] = {k: cuda.launches[k] - before[k] for k in before}
+        entries = self.entries[name] = _entry_delta(before_entries)
         log(f"phase {name}: {self.seconds[name]:.3f} s, launches {delta}")
         if any(os.environ.get(flag) for flag in ROW_FLAGS):
-            if delta["K6"] != delta["K7"]:
-                raise AssertionError(f"{name}: {delta['K6']} K6 launches, not one per bucket pass (K7)")
-        elif delta["K3"] != delta["K2"] + delta["K7"]:
-            raise AssertionError(f"{name}: {delta['K3']} K3 launches, not one per bucket pass (K2 + K7)")
+            if entries.get("bz_window_sums_planes", 0) != delta["K7"]:
+                raise AssertionError(f"{name}: {entries} K6 window launches, not one per bucket pass (K7)")
+        elif entries.get("bz_window_sums", 0) != delta["K2"] + delta["K7"]:
+            raise AssertionError(f"{name}: {entries} K3 window launches, not one per bucket pass (K2 + K7)")
         return out
 
 
@@ -1195,6 +1225,240 @@ def run_native_engine(dev, timed: Phases, session_want: list) -> dict:
     return report
 
 
+PARALLEL_REPS = 3  # timed calls of each sharded transform and commit batch, and of their unsharded versions
+
+
+def parallel_mesh():
+    """The parallel phase's mesh: one shard a card, or two shards on
+    cuda:0 when one card is visible."""
+    import torch
+
+    from battlezips_halo2_tpu_torch.parallel import mesh_from_devices
+
+    cards = torch.cuda.device_count()
+    return mesh_from_devices([torch.device("cuda", i) for i in range(cards)] if cards > 1
+                             else [torch.device("cuda", 0)] * 2)
+
+
+def _host_s(fn, reps: int) -> tuple[object, list]:
+    """(fn(), host seconds of each of ``reps`` calls ending in a synchronize
+    of every card), after one warm-up call."""
+    import torch
+
+    out = fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.time()
+        fn()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+        times.append(time.time() - t)
+    return out, times
+
+
+def _check_sharded_launches(tag: str, d: int, entry: dict) -> int:
+    """Hold a sharded board proof's launches (``entry["launches"]`` and
+    ``["entries"]``, per kernel and per C entry) against the one-card
+    proof's of the same configuration; -> the sharded commit batches.
+    Each sharded commit batch runs one complete bucket pass (K7) a shard
+    where one card runs one pass (K2 in the default configuration, K7 in
+    the row one), and folds the D partials by D - 1 lane-wise K3 launches,
+    which nothing else of a proof calls; the IPA's MSMs stay as on one
+    card. So the bucket passes (K2 + K7) grow by D - 1 a batch, and K2
+    falls by the batches in the default configuration: no K2 inside the
+    sharded commitments. The sharded NTTs launch more NTT stages (K4, or
+    K5 in the row configuration) than one card's."""
+    sharded, one = entry["launches"], entry["one_card_launches"]
+    passes = sharded["K2"] + sharded["K7"] - one.get("K2", 0) - one.get("K7", 0)
+    batches, rest = divmod(passes, d - 1)
+    fold = entry["entries"].get("bz_point_add", 0)
+    k2 = one.get("K2", 0) - (batches if tag == "default" else 0)
+    stage = "K5" if tag == "row" else "K4"
+    faults = [f"kernel {k} not launched" for k in PARALLEL_PATH_KERNELS[tag] if sharded[k] <= 0]
+    window = "bz_window_sums_planes" if tag == "row" else "bz_window_sums"
+    if entry["entries"].get(window, 0) <= 0:  # K3's count alone would pass on the lane-wise fold
+        faults.append(f"no {window} launch: the shards' window sums did not run")
+    if rest or batches < 1:
+        faults.append(f"{passes} more bucket passes than one card, not a positive multiple of D - 1 = {d - 1}")
+    if fold != (d - 1) * batches:
+        faults.append(f"{fold} lane-wise K3 launches, not (D - 1) x {batches} batches")
+    if entry["one_card_entries"].get("bz_point_add", 0):
+        faults.append("the one-card proof launched the lane-wise K3")
+    if sharded["K2"] != k2:
+        faults.append(f"K2 {sharded['K2']}, not {k2}: K2 launched inside the sharded commitments")
+    if sharded[stage] <= one.get(stage, 0):
+        faults.append(f"{stage} {sharded[stage]} against {one.get(stage, 0)} on one card: the NTTs did not shard")
+    if faults:
+        raise AssertionError(f"sharded board proof [{tag}]: {'; '.join(faults)}")
+    return batches
+
+
+def run_parallel(dev, timed: Phases) -> dict:
+    """The parallel layer (battlezips_halo2_tpu_torch/parallel) on the
+    card(s): (a) the golden k = 12 board proof under use_mesh, in the
+    default and the row configuration (golden bytes, accepted, a tampered
+    copy refused; a steady sharded proof beside a one-card one, and device
+    busy per card of each); (b) the four basis transforms of the board's
+    domain (n = 2^12 and the extended 2^15) sharded against the unsharded
+    ``*_limbs`` transforms; (c) the sharded MSM of an 11-column commit
+    batch over the board's [G | W] (4097 points) against
+    ``msm_many_table``; (d) the launches of a steady sharded proof, the
+    slice's main path, counted from 0, against a one-card proof's
+    (:func:`_check_sharded_launches`: the lane-wise K3 folds the partials,
+    K2 never launches in the sharded commitments; the IPA rounds' MSMs stay
+    unsharded, on K2, as in the reference), and every transform of the
+    sharded proofs through the 4-step NTT (no size refused by its shape
+    gate, twiddles on the mesh for the board's n); (e) tools/torch_multihost_ntt.py over NCCL
+    when two cards are visible. -> the phase's numbers."""
+    import torch
+
+    from battlezips_halo2_tpu_torch import api
+    from battlezips_halo2_tpu_torch.curves.host import VESTA
+    from battlezips_halo2_tpu_torch.ops import cuda
+    from battlezips_halo2_tpu_torch.fields.host import FP
+    from battlezips_halo2_tpu_torch.ops.msm import msm_many_table
+    from battlezips_halo2_tpu_torch.parallel.context import use_mesh
+    from battlezips_halo2_tpu_torch.parallel.msm import shard_table, sharded_msm_many_table
+    from battlezips_halo2_tpu_torch.parallel.ntt import sharded_transform_batch
+    from battlezips_halo2_tpu_torch.poly import transforms as T
+
+    mesh = parallel_mesh()
+    log(f"parallel mesh: {mesh}")
+    card = card_line()
+    golden = json.loads(GOLDEN_BOARD.read_text())
+    profile = _load_tool(ROOT / "tools" / "torch_profile_shot.py", "torch_profile_shot")
+    report = {"mesh": repr(mesh), "shards": mesh.size, "card": card, "proofs": {}}
+
+    def sharded(fn):
+        with use_mesh(mesh):
+            return fn()
+
+    # (a) and (d): the board proof under the mesh, in both configurations
+    for tag, env in (("default", {}), ("row", {flag: "1" for flag in ROW_FLAGS})):
+
+        def prove(seed, on_mesh=True):
+            def run():
+                return api.prove_board(GOLDEN_PLACEMENTS, 0xBEEF, rng=random.Random(seed), device=dev)
+
+            return sharded(run) if on_mesh else run()
+
+        def one_config():
+            proof = timed(f"sharded prove_board (golden rng) [{tag}]", lambda: prove(golden["seed"]))
+            if proof.proof.hex() != golden["proof_hex"]:
+                raise AssertionError(f"sharded board proof bytes differ from tests/golden/board_k12.json [{tag}]")
+            if not timed(f"sharded verify_board [{tag}]", lambda: sharded(lambda: api.verify_board(proof, dev))):
+                raise AssertionError(f"verify_board rejected the sharded golden proof [{tag}]")
+            bad = api.BoardProof(proof.commitment, _tampered(proof.proof))
+            if timed(f"sharded verify_board (tampered) [{tag}]", lambda: sharded(lambda: api.verify_board(bad, dev))):
+                raise AssertionError(f"verify_board accepted a tampered sharded proof [{tag}]")
+            name = f"sharded prove_board (fresh rng, steady state) [{tag}]"
+            one = f"prove_board (fresh rng, one card) [{tag}]"
+            cuda.reset_launches()  # the slice's main path: its counts from 0 just before it, read just after
+            steady = timed(name, lambda: prove(8))
+            path, path_entries = dict(cuda.launches), dict(cuda.entry_launches)
+            single = timed(one, lambda: prove(8, on_mesh=False))
+            if steady.proof != single.proof:
+                raise AssertionError(f"the sharded proof differs from the one-card proof [{tag}]")
+            entry = {"golden_bytes_equal": True, "verified": True, "tampered_refused": True,
+                     "sharded_s": timed.seconds[name], "one_card_s": timed.seconds[one],
+                     "launches": path, "entries": path_entries,
+                     "one_card_launches": {k: v for k, v in timed.launches[one].items() if v},
+                     "one_card_entries": timed.entries[one]}
+            entry["commit_batches"] = _check_sharded_launches(tag, mesh.size, entry)
+            if tag == "default":
+                entry["profile_sharded"] = profile.profiled(lambda: prove(9))
+                entry["profile_one_card"] = profile.profiled(lambda: prove(9, on_mesh=False))
+                for key in ("profile_sharded", "profile_one_card"):
+                    entry[key].pop("kernels")
+            return entry
+
+        entry = report["proofs"][tag] = _with_env(env, one_config)
+        launches, entries = entry["launches"], entry["entries"]
+        log(f"sharded board proof [{tag}] on {card}: {entry['sharded_s']:.3f} s against {entry['one_card_s']:.3f} s "
+            f"on one card; launches K1 {launches['K1']}, K3 window {entries.get('bz_window_sums', 0)}, K3 lane-wise "
+            f"{entries.get('bz_point_add', 0)}, K4 {launches['K4']}, K5 {launches['K5']}, K6 {launches['K6']}, K7 "
+            f"{launches['K7']}, K2 {launches['K2']}; {entry['commit_batches']} sharded commit batches; one card: "
+            f"{entry['one_card_launches']}")
+        for key in ("profile_sharded", "profile_one_card"):
+            if key in entry:
+                log(f"  {key}: {entry[key]}")
+    # every transform of the sharded proofs went through the 4-step NTT
+    sizes = sorted({key[1] for key in mesh.cache if key[0] == "twiddles"})
+    log(f"sharded transform sizes (twiddle tables on the mesh): {sizes}; refused by the shape gate: {mesh.unsharded}")
+    if mesh.unsharded or api.board_keys(dev)[1].vk.domain.n not in sizes:
+        raise AssertionError(f"the sharded proofs' transforms did not all run sharded: twiddles for {sizes}, "
+                             f"refused {mesh.unsharded}")
+    report["sharded_sizes"] = sizes
+
+    # (b) the board domain's four basis transforms, sharded against unsharded
+    p = FP.modulus
+    dom = api.board_keys(dev)[1].vk.domain
+    rng = random.Random(13)
+    vals = _rand_canonical(rng, 4 * dom.n, dev).view(4, dom.n, 8)
+    coeff = T.lagrange_to_coeff_limbs(dom, vals)
+    ext_n = dom.extended_n
+    padded = torch.cat([coeff, torch.zeros(4, ext_n - dom.n, 8, dtype=torch.int32, device=dev)], 1)
+    ext = T.coeff_to_extended_limbs(dom, padded)
+    cases = {
+        "lagrange_to_coeff": (lambda: T.lagrange_to_coeff_limbs(dom, vals),
+                              lambda: sharded_transform_batch(mesh, dom.n, pow(dom.omega, -1, p), vals,
+                                                              post_k=pow(dom.n, -1, p))),
+        "coeff_to_lagrange": (lambda: T.coeff_to_lagrange_limbs(dom, coeff),
+                              lambda: sharded_transform_batch(mesh, dom.n, dom.omega, coeff)),
+        "coeff_to_extended": (lambda: T.coeff_to_extended_limbs(dom, padded),
+                              lambda: sharded_transform_batch(mesh, ext_n, dom.extended_omega, padded,
+                                                              pre_g=dom.g_coset)),
+        "extended_to_coeff": (lambda: T.extended_to_coeff_limbs(dom, ext),
+                              lambda: sharded_transform_batch(mesh, ext_n, pow(dom.extended_omega, -1, p), ext,
+                                                              post_g=dom.g_coset_inv, post_k=pow(ext_n, -1, p))),
+    }
+    report["transforms"] = {}
+    for name, (plain_fn, sharded_fn) in cases.items():
+        want, one_s = _host_s(plain_fn, PARALLEL_REPS)
+        before = dict(cuda.launches)
+        sharded_fn()
+        calls = {k: v - before[k] for k, v in cuda.launches.items() if v != before[k]}
+        got, sharded_s = _host_s(sharded_fn, PARALLEL_REPS)
+        if got.device != want.device or not torch.equal(got, want):
+            raise AssertionError(f"the sharded {name} differs from the unsharded transform")
+        size = ext_n if "extended" in name else dom.n
+        report["transforms"][name] = {"n": size, "batch": 4, "sharded_s": sharded_s, "one_card_s": one_s,
+                                      "launches": calls}
+        log(f"sharded {name} (n = {size}, batch 4) bit-exact; {min(sharded_s) * 1e3:.3f} ms sharded, "
+            f"{min(one_s) * 1e3:.3f} ms one card (best of {PARALLEL_REPS}, host clock); launches {calls}")
+
+    # (c) an 11-column commit batch over the board's [G | W]
+    params = api.board_keys(dev)[0]
+    table = params.gw_table()
+    scalars = _rand_canonical(rng, BOARD_COMMIT_BATCH * table.shape[0], dev).view(BOARD_COMMIT_BATCH, -1, 8)
+    cut = shard_table(VESTA, table, mesh)
+    want, one_s = _host_s(lambda: msm_many_table(VESTA, table, scalars), PARALLEL_REPS)
+    got, sharded_s = _host_s(lambda: sharded_msm_many_table(VESTA, cut, scalars, mesh), PARALLEL_REPS)
+    if got != want:
+        raise AssertionError("the sharded commit batch differs from msm_many_table")
+    report["commit_batch"] = {"points": table.shape[0], "columns": BOARD_COMMIT_BATCH, "c": cut.c,
+                              "sharded_s": sharded_s, "one_card_s": one_s}
+    log(f"sharded MSM of {BOARD_COMMIT_BATCH} columns over {table.shape[0]} points (c = {cut.c} a shard) equals "
+        f"msm_many_table; {min(sharded_s) * 1e3:.3f} ms sharded, {min(one_s) * 1e3:.3f} ms one card")
+
+    # (e) the NTT across processes, one card a rank
+    if torch.cuda.device_count() >= 2:
+        t = time.time()
+        out = subprocess.run([sys.executable, str(ROOT / "tools" / "torch_multihost_ntt.py"), "--procs", "2",
+                              "--logn", "16", "--timeout", "300"], capture_output=True, text=True, timeout=400,
+                             cwd=ROOT)
+        for line in out.stdout.splitlines():
+            log(f"  multihost: {line}")
+        if out.returncode != 0 or "torch_multihost_ntt: OK" not in out.stdout:
+            raise AssertionError(f"tools/torch_multihost_ntt.py --procs 2 failed: {out.stderr[-2000:]}")
+        report["multihost_s"] = time.time() - t
+    else:
+        log("multihost: 1 card visible, needs 2")
+        report["multihost_s"] = None
+    return report
+
+
 SERVE_KERNELS = ("K1", "K2", "K3", "K4", "K7")  # a default board proof on the device engine
 SERVE_ROUNDS = 2  # each op twice on each engine: the first request, then a steady one
 
@@ -1511,6 +1775,15 @@ def main() -> int:
     if missing:  # the hybrid's kernels (its sessions' own counts are checked in the phase)
         raise AssertionError(f"kernels not launched in the native engine phase: {missing}")
 
+    # the parallel layer: the board proof under a mesh (its launches counted
+    # from 0 around each configuration's steady sharded proof), sharded
+    # transforms and commitments
+    t = time.time()
+    parallel = run_parallel(dev, timed)
+    parallel["launches"] = {tag: entry["launches"] for tag, entry in parallel["proofs"].items()}
+    log(f"phase parallel: {time.time() - t:.3f} s on {card_line()}, sharded board proof launches "
+        f"{parallel['launches']}")
+
     # K5 at the board's own extended-domain shape: every polynomial the
     # quotient extends, at the vk's extended domain
     from battlezips_halo2_tpu_torch import api
@@ -1554,13 +1827,16 @@ def main() -> int:
                 "K6": "battlezips_halo2_tpu_torch/csrc/point_add_planes.cu"}[name]}
         kernels.append({
             "name": f"{name} {fn}", "route": "cuda", "source": f"battlezips_halo2_tpu_torch/{src}",
-            "replaces": replaces, "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            "replaces": replaces, "launches": launches[name],
+            "parallel_launches": {tag: counts[name] for tag, counts in parallel["launches"].items()},
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "shape": r["shape"], **extra,
         })
     log(f"chip_smoke total: {time.time() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels, "phases_s": timed.seconds, "row_configuration_launches": row_launches,
                       "session_launches": session_launches, "native_engine": native_report, "serving": serving,
+                      "parallel": parallel,
                       "ops_per_s": OPS_PER_S, "mont_mul_results": MONT_MUL_RESULTS}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """The port stands alone and runs on the card unless told otherwise:
 no module of battlezips_halo2_tpu_torch, nor chip_smoke.py,
 tools/torch_profile_shot.py, tools/torch_exp_step_t.py,
-tools/torch_window_sums.py, tools/torch_serve.py, tools/torch_drive_e2e.py
+tools/torch_window_sums.py, tools/torch_serve.py, tools/torch_drive_e2e.py,
+tools/torch_multihost_ntt.py, tools/torch_multihost_session.py
 or examples/torch_demo.py, nor the card's tests (tests/test_torch_kernels.py
 and the inputs it takes from tests/test_torch_inputs.py), imports JAX or the
 JAX package; no file of the port names the JAX package's native runtime or
@@ -40,6 +41,7 @@ def _imports(path: Path) -> set[str]:
     + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_profile_shot.py", ROOT / "tools" / "torch_exp_step_t.py",
        ROOT / "tools" / "torch_window_sums.py", ROOT / "tools" / "torch_serve.py", ROOT / "tools" / "torch_drive_e2e.py",
        ROOT / "examples" / "torch_demo.py"]
+    + [ROOT / "tools" / "torch_multihost_ntt.py", ROOT / "tools" / "torch_multihost_session.py"]
     + [ROOT / "tests" / "test_torch_kernels.py", ROOT / "tests" / "test_torch_inputs.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )

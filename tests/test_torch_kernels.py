@@ -332,3 +332,81 @@ def test_session_on_two_cards_gives_the_one_card_bytes(second_card, batched):
     assert proofs[0] == proofs[1]
     assert torch.cuda.memory_allocated(second_card) > 0
     assert api.verify_session(two, device=second_card)
+
+
+# ---------------------------------------------------------------- parallel
+
+
+def _sharded_cases(mesh, dev):
+    """The four sharded basis transforms at EvaluationDomain(10, 3) and a
+    sharded MSM batch over 257 points (one vector zero past the first
+    shard), each against the unsharded kernels on ``dev``."""
+    from battlezips_halo2_tpu_torch.parallel.msm import shard_table, sharded_msm_many_table
+    from battlezips_halo2_tpu_torch.parallel.ntt import sharded_transform_batch
+    from battlezips_halo2_tpu_torch.poly import transforms as T
+    from battlezips_halo2_tpu_torch.poly.domain import EvaluationDomain
+
+    p = FP.modulus
+    rng = random.Random(13)
+    dom = EvaluationDomain(10, 3)
+    vals = _field(rng, p, 3 * dom.n, dev).view(3, dom.n, 8)
+    coeff = T.lagrange_to_coeff_limbs(dom, vals)
+    ext = T.coeff_to_extended_limbs(dom, coeff)
+    ext_n = dom.extended_n
+    padded = torch.cat([coeff, torch.zeros(3, ext_n - dom.n, 8, dtype=torch.int32, device=dev)], 1)
+    cases = [
+        (sharded_transform_batch(mesh, dom.n, pow(dom.omega, -1, p), vals, post_k=pow(dom.n, -1, p)), coeff),
+        (sharded_transform_batch(mesh, dom.n, dom.omega, coeff), T.coeff_to_lagrange_limbs(dom, coeff)),
+        (sharded_transform_batch(mesh, ext_n, dom.extended_omega, padded, pre_g=dom.g_coset), ext),
+        (sharded_transform_batch(mesh, ext_n, pow(dom.extended_omega, -1, p), ext, post_g=dom.g_coset_inv,
+                                 post_k=pow(ext_n, -1, p)), T.extended_to_coeff_limbs(dom, ext)),
+    ]
+    for got, want in cases:
+        assert got.device == dev and torch.equal(got, want)
+    pts = [VESTA.mul(VESTA.generator, rng.randrange(1, 1 << 64)) for _ in range(257)]
+    table = C.affine_table(L.FQ_SPEC, pts, dev)
+    scalars = L.ints_to_limbs([rng.randrange(VESTA.scalar.modulus) for _ in range(2 * 257)] + [5] * 3 + [0] * 254,
+                              dev).view(3, 257, 8)
+    got = sharded_msm_many_table(VESTA, shard_table(VESTA, table, mesh), scalars, mesh)
+    assert got == M.msm_many_table(VESTA, table, scalars)
+    return cases, got
+
+
+def test_sharded_ntt_and_msm_two_shards_on_one_card(cuda):
+    """Two shards on one card: every kernel at shard shapes, every
+    collective a copy on the card; bit-exact against the unsharded kernels,
+    the lane-wise K3 folding the partials and no K2."""
+    from battlezips_halo2_tpu_torch.ops import cuda as K
+    from battlezips_halo2_tpu_torch.parallel import mesh_from_devices
+
+    K.reset_launches()
+    _sharded_cases(mesh_from_devices([cuda, cuda]), torch.device("cuda", torch.cuda.current_device()))
+    assert K.entry_launches["bz_point_add"] > 0 and K.launches["K7"] > 0
+
+
+def test_sharded_ntt_and_msm_on_two_cards(second_card, monkeypatch):
+    """One shard a card: the copies between cards are ordered after the
+    kernels on both cards' streams: the same values as with every card
+    synchronized around each collective, and as one card alone."""
+    from battlezips_halo2_tpu_torch.parallel import collectives, mesh_from_devices
+
+    first = torch.device("cuda", 0)
+    mesh = mesh_from_devices([first, second_card])
+    cases, points = _sharded_cases(mesh, first)
+    for name in ("all_to_all", "all_gather"):
+        fn = getattr(collectives, name)
+
+        def synced(m, xs, fn=fn):
+            for d in m.local_devices():
+                torch.cuda.synchronize(d)
+            out = fn(m, xs)
+            for d in m.local_devices():
+                torch.cuda.synchronize(d)
+            return out
+
+        monkeypatch.setattr(collectives, name, synced)
+        for module in ("ntt", "msm"):
+            monkeypatch.setattr(f"battlezips_halo2_tpu_torch.parallel.{module}.{name}", synced, raising=False)
+    synced_cases, synced_points = _sharded_cases(mesh_from_devices([first, second_card]), first)
+    assert synced_points == points
+    assert all(torch.equal(a[0], b[0]) for a, b in zip(cases, synced_cases))

@@ -8,8 +8,8 @@ and four shots) of battlezips_halo2_tpu_torch goes on an NVIDIA card.
 from the repo root, on a machine with a card. After the keys and one
 warm-up proof it proves and verifies once more under ``torch.profiler``
 and prints one JSON object: wall seconds, device busy milliseconds (the
-sum of the kernels' own device time), the device's idle share, and the
-kernels ordered by device time. The card's name and power limit come
+sum of the kernels' own device time, in all and per card), the device's
+idle share, and the kernels ordered by device time. The card's name and power limit come
 first. ``--out`` also writes the JSON to a file. The engine configuration
 is the environment's: ``BZ_ROW_NTT`` / ``BZ_ROW_MSM``, ``BZ_PROOF_ENGINE``
 and ``BZ_BATCH_ENGINE`` (``BZ_BATCH_ENGINE=device BZ_PROOF_ENGINE=auto
@@ -56,10 +56,15 @@ def profiled(fn) -> dict:
             kernels.append({"name": evt.key[:120], "count": evt.count, "device_ms": us / 1e3})
     kernels.sort(key=lambda k: -k["device_ms"])
     busy = sum(k["device_ms"] for k in kernels)
+    by_card: dict = {}  # the kernels' device time on each card (a sharded proof runs on several)
+    for evt in prof.events():
+        if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            by_card[evt.device_index] = by_card.get(evt.device_index, 0.0) + _device_self_us(evt) / 1e3
     return {
         "wall_s": wall,
         "device_busy_ms": busy,
         "device_idle_share": 1 - busy / (wall * 1e3) if kernels else None,
+        "device_busy_ms_by_card": {f"cuda:{i}": ms for i, ms in sorted(by_card.items())},
         "kernels": kernels[:25],
     }
 
