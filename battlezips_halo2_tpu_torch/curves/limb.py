@@ -6,9 +6,10 @@ the reference's curves/limb.py). Affine point tables for the MSM are
 ``(N, 2, 8)``: (x, y) in Montgomery form, the all-zero row being the
 identity ((0, 0) is never on y^2 = x^3 + 5).
 
-Kernel K3's lane-wise form (``csrc/point_add.cu``) is the complete
-addition :func:`point_add` (the MSM's window aggregation, K3 proper, is
-``ops/msm.py::window_sums``). Kernel K6's lane-wise form
+Kernel K3's lane-wise forms (``csrc/point_add.cu``) are the complete
+addition :func:`point_add` and :func:`point_fold`, the left-to-right sum of
+a stack of D partials in one launch (the sharded MSM's fold; the MSM's
+window aggregation, K3 proper, is ``ops/msm.py::window_sums``). Kernel K6's lane-wise form
 (``csrc/point_add_planes.cu``), :func:`point_add_planes`, is the same
 addition on points held as coordinate planes, ``(3, ..., 8)`` with X, Y
 and Z each contiguous, as the reference's ``JacobianPoint`` rows are (the
@@ -213,6 +214,39 @@ def point_add(spec: FieldSpec, p: torch.Tensor, q: torch.Tensor, out=None) -> to
     n = p.numel() // (3 * L.NLIMBS)
     if n:
         cuda.launch("K3", "bz_point_add", p, spec.kernel_consts, cuda.ptr(p), cuda.ptr(q), cuda.ptr(out), n)
+    return out
+
+
+def point_fold_plain(spec: FieldSpec, stack: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`point_fold`: stack[0] +
+    stack[1] + ... + stack[D - 1], added left to right by
+    :func:`point_add_plain`."""
+    acc = stack[0]
+    for part in stack[1:]:
+        acc = point_add_plain(spec, acc, part)
+    return acc.clone() if stack.shape[0] == 1 else acc
+
+
+def point_fold(spec: FieldSpec, stack: torch.Tensor) -> torch.Tensor:
+    """K3: ((P_0 + P_1) + P_2) + ... + P_{D-1} over lanes, for a (D, ...,
+    3, 8) stack of Jacobian points -> (..., 3, 8), in the order of the
+    reference's fold loop, so the Jacobian coordinates are its own. A CUDA
+    tensor launches the kernel once, each lane's D - 1 complete additions
+    in one thread; a CPU tensor runs :func:`point_fold_plain`."""
+    if stack.dim() < 3 or stack.shape[0] < 1 or stack.shape[-2:] != (3, L.NLIMBS):
+        raise ValueError(f"expected a (D, ..., 3, 8) point stack, got {tuple(stack.shape)}")
+    if not stack.is_cuda:
+        return point_fold_plain(spec, stack)
+    from ..ops import cuda
+
+    out = torch.empty_like(stack[0])
+    for t, what in ((stack, "stack"), (out, "out")):
+        cuda.require(t, torch.int32, f"K3 point fold {what}")
+    lanes = out.numel() // (3 * L.NLIMBS)
+    if lanes:
+        threads, _ = cuda.chain_grid(lanes, cuda.sm_count(stack.device))
+        cuda.launch("K3", "bz_point_fold", stack,
+                    spec.kernel_consts, cuda.ptr(stack), cuda.ptr(out), stack.shape[0], lanes, threads)
     return out
 
 

@@ -7,7 +7,8 @@ Montgomery products with R = 2^256, so field values in Montgomery form
 multiply with :func:`mont_mul`; :func:`to_mont` / :func:`from_mont` convert.
 
 Kernel K1's elementwise form (``csrc/field_ops.cu``) computes
-``out[i] = a[i] op b[i % nb]`` for op in (Montgomery product, add, sub);
+``out[i] = a[i] op b[i % nb]`` for op in (Montgomery product, add, sub),
+with b's rows on one grid axis and a's batch on the other;
 the quotient program runs on K1's VM kernel (``ops/gate_eval.py``).
 :func:`field_op` launches it for a CUDA tensor and runs the plain PyTorch
 version (:func:`plain_field_op`) for a CPU tensor. The plain version
@@ -36,6 +37,12 @@ from .host import FP, FQ, Field
 
 NLIMBS = 8
 OP_MUL, OP_ADD, OP_SUB = 0, 1, 2
+# K1's elementwise threads a block. The kernel takes 44 registers a thread
+# (1536 a warp as allocated), so an H100 SM holds 42 of its warps: blocks
+# of 64-256 threads keep 40-42 resident, 512 and 1024 only 32, and fewer
+# rows in flight is less bandwidth. chip_smoke.py times 64-1024 at every
+# path shape: 128 was fastest or within 4 % of 64 at each (PERF.md).
+FIELD_OP_THREADS = 128
 _M16 = 0xFFFF
 
 
@@ -248,7 +255,8 @@ def field_op(op: int, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, out=Non
     for t in (a, b, out):
         cuda.require(t, torch.int32, "K1 field op")
     if n:
-        cuda.launch("K1", "bz_field_op", a, op, spec.kernel_consts, cuda.ptr(a), cuda.ptr(b), cuda.ptr(out), n, nb)
+        cuda.launch("K1", "bz_field_op", a, op, spec.kernel_consts, cuda.ptr(a), cuda.ptr(b), cuda.ptr(out), n, nb,
+                    FIELD_OP_THREADS)
     return out
 
 

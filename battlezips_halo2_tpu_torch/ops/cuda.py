@@ -14,7 +14,8 @@ but 0.
 
 ``launches`` counts, per kernel, the launches made since the last
 :func:`reset_launches`, and ``entry_launches`` per C entry (K3's window
-kernel ``bz_window_sums`` apart from its lane-wise ``bz_point_add``). Each
+kernel ``bz_window_sums`` apart from its lane-wise ``bz_point_add`` and
+``bz_point_fold``). Each
 wrapper adds one exactly where it launches, under a lock, so the counts
 stay exact when several threads prove at once
 (``api.prove_session(workers > 1)``).
@@ -54,12 +55,14 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _INT = ctypes.c_int
 _SIGNATURES = {
-    # op, consts, a, b, out, n, nb, stream
-    "bz_field_op": (_INT, _P, _P, _P, _P, _I64, _I64, _P),
+    # op, consts, a, b, out, n, nb, threads a block, stream
+    "bz_field_op": (_INT, _P, _P, _P, _P, _I64, _I64, _INT, _P),
     # consts, x, tw, batch, logn, stage, stream
     "bz_ntt_stage": (_P, _P, _P, _I64, _INT, _INT, _P),
     # consts, p, q, out, n, stream
     "bz_point_add": (_P, _P, _P, _P, _I64, _P),
+    # consts, stack, out, d, lanes, threads a block, stream
+    "bz_point_fold": (_P, _P, _P, _INT, _I64, _INT, _P),
     # consts, u, v, tw, out0, out1, batch, n2, stream
     "bz_butterfly_rows": (_P, _P, _P, _P, _P, _P, _I64, _I64, _P),
     # consts, p planes, q planes, out planes, n, stream
@@ -263,10 +266,11 @@ def sm_count(device: torch.device) -> int:
 
 
 def chain_grid(n: int, sms: int) -> tuple[int, int]:
-    """(threads a block, blocks) of a chain kernel (K8, K9) over n lanes, one
-    lane a thread: the largest power of two from 256 down to 32 whose blocks
-    still reach all ``sms`` SMs (2^15 lanes in blocks of 256 are 128 blocks,
-    which leave 4 of the H100's 132 SMs idle)."""
+    """(threads a block, blocks) of a chain kernel (K8, K9, K3's fold) over
+    n lanes, one lane a thread: the largest power of two from 256 down to 32
+    whose blocks still reach all ``sms`` SMs (2^15 lanes in blocks of 256
+    are 128 blocks, which leave 4 of the H100's 132 SMs idle; the fold's 352
+    lanes take 11 blocks of 32)."""
     block = 256
     while block > 32 and -(-n // block) < sms:
         block //= 2

@@ -504,15 +504,16 @@ class BatchQuotientEvaluator:
 
     def _extended(self, polys: list) -> torch.Tensor:
         """Coefficient lists (each <= n long) -> (K, ext, 8) Montgomery
-        evaluations on the extended coset; the padding to ext is on the
-        device (poly/transforms.py::coeff_to_extended_limbs)."""
+        evaluations on the extended coset, in one K1 product (coset scale
+        and to_mont) and the NTT; the padding to ext is on the device
+        (poly/transforms.py::coeff_to_extended_limbs)."""
         n = self.domain.n
         flat = []
         for poly in polys:
             flat.extend(v % P for v in poly)
             flat.extend([0] * (n - len(poly)))
         coeffs = ints_to_limbs(flat, self.device).reshape(len(polys), n, L.NLIMBS)
-        return L.to_mont(FP_SPEC, coeff_to_extended_limbs(self.domain, coeffs))
+        return coeff_to_extended_limbs(self.domain, coeffs, mont_out=True)
 
     def inputs(self, coeff_polys_by_key_list: list, challenges_list: list) -> tuple[torch.Tensor, torch.Tensor]:
         """One {key: coefficient int list} and one (theta, beta, gamma, y)
@@ -526,7 +527,8 @@ class BatchQuotientEvaluator:
         per = self._extended([polys[k] for polys in coeff_polys_by_key_list for k in self.per_keys])
         per = per.view(nb, len(self.per_keys), self.domain.extended_n, L.NLIMBS)
         flat_ch = [c % P for chs in challenges_list for c in chs]
-        ch = L.to_mont(FP_SPEC, ints_to_limbs(flat_ch, self.device)).view(nb, len(CHALLENGES), L.NLIMBS)
+        ch = ints_to_limbs([c * FP_SPEC.r_mod_p % P for c in flat_ch], self.device)
+        ch = ch.view(nb, len(CHALLENGES), L.NLIMBS)
         return per, ch
 
     def sources(self, per: torch.Tensor, ch: torch.Tensor) -> tuple:
@@ -546,7 +548,7 @@ class BatchQuotientEvaluator:
         Returns each proof's h coefficients."""
         nb, ext = len(coeff_polys_by_key_list), self.domain.extended_n
         h_ext = self.h_ext(*self.inputs(coeff_polys_by_key_list, challenges_list))
-        ints = limbs_to_ints(extended_to_coeff_limbs(self.domain, L.from_mont(FP_SPEC, h_ext)))
+        ints = limbs_to_ints(extended_to_coeff_limbs(self.domain, h_ext, mont_in=True))
         return [ints[i * ext : (i + 1) * ext] for i in range(nb)]
 
 

@@ -153,10 +153,32 @@ def intt(plan_inv: NttPlan, a: torch.Tensor, n_inv_mont: torch.Tensor) -> torch.
     return L.mont_mul(plan_inv.spec, out, n_inv_mont, out=out)
 
 
-def make_scale_vector(field: Field, g: int, n: int, spec: FieldSpec, device) -> torch.Tensor:
-    """Powers g^i, i < n, as (n, 8) Montgomery limbs (coset scaling)."""
-    out, acc = [], spec.r_mod_p
-    for _ in range(n):
+def geometric_limbs(modulus: int, first: int, ratio: int, count: int, device) -> torch.Tensor:
+    """(count, 8) limbs of first * ratio^j mod modulus, j < count, built in
+    Python ints on the host: the scale vectors of the basis transforms, here
+    (:func:`scale_vector`) and over a mesh (parallel/ntt.py)."""
+    out, acc = [], first % modulus
+    for _ in range(count):
         out.append(acc)
-        acc = acc * g % field.modulus
+        acc = acc * ratio % modulus
     return ints_to_limbs(out, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_scale_vector(modulus: int, g: int, n: int, factor: int, device: str) -> torch.Tensor:
+    return geometric_limbs(modulus, factor, g, n, device)
+
+
+def scale_vector(modulus: int, g: int, n: int, factor: int, device) -> torch.Tensor:
+    """The (n, 8) limbs of factor * g^i mod modulus, i < n: one K1 product
+    by it scales row i by g^i factor R^-1. Built once per (modulus, g, n,
+    factor, device) a process and kept: callers must not write into it."""
+    return _cached_scale_vector(modulus, g % modulus, n, factor % modulus, str(torch.device(device)))
+
+
+def make_scale_vector(field: Field, g: int, n: int, spec: FieldSpec, device) -> torch.Tensor:
+    """Powers g^i, i < n, as (n, 8) Montgomery limbs (coset scaling): the
+    vector of :func:`scale_vector` with factor R, from its cache
+    (``_cached_scale_vector``, one tensor per size, generator and device a
+    process); callers must not write into it."""
+    return scale_vector(field.modulus, g, n, spec.r_mod_p, device)

@@ -5,8 +5,9 @@ Each shard runs the whole local Pippenger pipeline of ops/msm.py
 (``msm_wsums(..., complete=True)``: kernel K7's complete bucket pass and
 K3's window kernel, or K7 and K6 under BZ_ROW_MSM) on its contiguous slice
 of the points and scalars. The D window-sum partials are all-gathered to
-the first local shard's device and folded there by D - 1 launches of the
-lane-wise K3 (``curves/limb.py::point_add``) over every (MSM, window) lane;
+the first local shard's device and folded there left to right, in one
+launch of the lane-wise K3 (``curves/limb.py::point_fold``: each (MSM,
+window) lane's D - 1 complete additions in one thread);
 the host then converts the window sums to affine and folds the windows.
 Moving one point per window and MSM is all the communication.
 
@@ -78,10 +79,7 @@ def sharded_msm_many_table(curve: Curve, sharded: ShardedTable, scalars: torch.T
         msm_wsums(spec, table, part, sharded.c, sharded.signed, complete=True)[0]
         for table, part in zip(sharded.shards, shard(mesh, padded, 1))
     ]  # per shard (B, W, 3, 8) Jacobian window sums
-    gathered = all_gather(mesh, partials)[0]  # (D, B, W, 3, 8)
-    acc = gathered[0]
-    for i in range(1, mesh.size):
-        acc = C.point_add(spec, acc, gathered[i])
+    acc = C.point_fold(spec, all_gather(mesh, partials)[0])  # (D, B, W, 3, 8) -> (B, W, 3, 8)
     w = acc.shape[1]
     aff = C.jacobian_to_affine(spec, acc)
     return [host_window_fold(curve, aff[i * w : (i + 1) * w], sharded.c) for i in range(b)]

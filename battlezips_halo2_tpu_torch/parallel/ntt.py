@@ -56,22 +56,15 @@ def _twiddle_table(mesh: Mesh, n: int, omega: int) -> list[torch.Tensor]:
     return mesh.cache[key]
 
 
-def _geom_vector(mesh: Mesh, n: int, g: int, k: int, factor: int) -> list[torch.Tensor]:
-    """Per local shard i, the (C, 8) limbs of v[j] = k g^j factor for the j
-    of its rows [i C, (i + 1) C), on its device: the pre- and post-scaling
-    of the basis transforms (factor R^2 folds to_mont into the pre-scale,
-    factor 1 from_mont into the post-scale). Built once per mesh."""
-    key = ("geom", n, g, k, factor)
+def _geom_vector(mesh: Mesh, n: int, g: int, k: int) -> list[torch.Tensor]:
+    """Per local shard i, the (C, 8) limbs of v[j] = k g^j for the j of its
+    rows [i C, (i + 1) C), on its device (ops/ntt.py::geometric_limbs): the
+    operand of a basis transform's scale. Built once per mesh."""
+    key = ("geom", n, g, k)
     if key not in mesh.cache:
         c = n // mesh.size
-        out = []
-        for i, dev in zip(mesh.local(), mesh.local_devices()):
-            acc, vals = k * factor * pow(g, i * c, P) % P, []
-            for _ in range(c):
-                vals.append(acc)
-                acc = acc * g % P
-            out.append(ints_to_limbs(vals, dev))
-        mesh.cache[key] = out
+        mesh.cache[key] = [D_ntt.geometric_limbs(P, k * pow(g, i * c, P), g, c, dev)
+                           for i, dev in zip(mesh.local(), mesh.local_devices())]
     return mesh.cache[key]
 
 
@@ -129,24 +122,22 @@ def sharded_transform_batch(mesh: Mesh, n: int, omega: int, batch_plain: torch.T
         coeff_to_extended: omega = w_ext,    pre = g^i,  post = 1
         extended_to_coeff: omega = w_ext^-1, pre = 1,    post = g^-i / n
 
-    to_mont and the pre-scale are one K1 product (by pre R^2), the
-    post-scale and from_mont another (by post in canonical form); the NTT
-    is the 4-step one of :func:`distributed_ntt`."""
+    The NTT multiplies only by Montgomery-form twiddles, so canonical rows
+    stay canonical through it: pre and post are one K1 product each by k
+    R (the Montgomery form of the scale), and a scale of 1 is no launch.
+    The NTT is the 4-step one of :func:`distributed_ntt`."""
     mesh.require_axis()
     if batch_plain.dim() != 3 or batch_plain.shape[1:] != (n, L.NLIMBS):
         raise ValueError(f"expected a (B, {n}, 8) batch, got {tuple(batch_plain.shape)}")
     if not sharded_transform_supported(mesh, n):
         raise ValueError(f"the 4-step NTT needs D > 1 and n divisible by D^2: n = {n}, D = {mesh.size}")
-    r2 = FP_SPEC.r2
+    r = FP_SPEC.r_mod_p
     xs = shard(mesh, batch_plain, 1)
-    pre = _geom_vector(mesh, n, pre_g, 1, r2) if pre_g != 1 else [FP_SPEC.const("r2", x.device) for x in xs]
-    xs = [L.mont_mul(FP_SPEC, x, v) for x, v in zip(xs, pre)]
+    if pre_g != 1:
+        xs = [L.mont_mul(FP_SPEC, x, v) for x, v in zip(xs, _geom_vector(mesh, n, pre_g, r))]
     ys = _four_step(mesh, n, omega, xs)
     if post_g != 1 or post_k != 1:
-        post = _geom_vector(mesh, n, post_g, post_k, 1)
-    else:
-        post = [FP_SPEC.const("one_plain", y.device) for y in ys]
-    ys = [L.mont_mul(FP_SPEC, y, v, out=y) for y, v in zip(ys, post)]
+        ys = [L.mont_mul(FP_SPEC, y, v, out=y) for y, v in zip(ys, _geom_vector(mesh, n, post_g, post_k * r))]
     return unshard(mesh, ys, 1, batch_plain.device)
 
 

@@ -1,8 +1,18 @@
 """Batched basis transforms on device: the prover's NTT workhorse.
 
 The ``*_limbs`` functions take and return ``(B, size, 8)`` canonical Fp limb
-tensors and run on the tensors' device (Montgomery conversion and coset
-scaling on kernel K1, the transforms on kernel K4). The ``batch_*``
+tensors and run on the tensors' device: each is an NTT (kernel K4, or K5
+under BZ_ROW_NTT) between at most two products of kernel K1 by a scale
+vector. The NTT multiplies only by Montgomery-form twiddles, so it maps
+canonical rows to canonical rows and Montgomery rows to Montgomery rows;
+a representation change needs no pass of its own, only a power of R folded
+into a scale vector (:func:`_ntt_scaled`). The vectors are built once per
+size, generator and device a process (ops/ntt.py::scale_vector). The
+quotient's extensions also come Montgomery-out and go back Montgomery-in
+(``mont_out`` / ``mont_in``), since its program works in Montgomery form.
+K1 launches: lagrange_to_coeff 1 (the 1/n scale), coeff_to_lagrange 0,
+coeff_to_extended 1 (the coset scale, on the unpadded coefficients),
+extended_to_coeff 1 (coset and 1/n in one). The ``batch_*``
 functions wrap them for lists of Python-int columns, converting only at the
 edges, as the reference's poly/transforms.py does; where BZ_PROOF_ENGINE
 sends the domain to the native host engine (ops/engine.py) they run there
@@ -28,14 +38,33 @@ from ..ops import ntt as D
 from .domain import EvaluationDomain
 
 P = FP.modulus
+R = FP_SPEC.r_mod_p
 
 
-def _n_inv(n: int, device) -> torch.Tensor:
-    return ints_to_limbs([pow(n, -1, P) * FP_SPEC.r_mod_p % P], device)
+def _scale(g: int, k: int, n: int, device) -> torch.Tensor:
+    """The cached operand of one K1 product: (n, 8) limbs of k g^i, or the
+    (1, 8) limbs of k where g = 1. A product by it scales row i by
+    k g^i R^-1, so k = s R scales by s, s R^2 also converts canonical to
+    Montgomery form and s alone converts Montgomery to canonical form."""
+    return D.scale_vector(P, g, n if g != 1 else 1, k, device)
 
 
-def _scale(g: int, n: int, device) -> torch.Tensor:
-    return D.make_scale_vector(FP, g, n, FP_SPEC, device)
+def _ntt_scaled(x: torch.Tensor, n: int, omega: int, pre=None, post=None) -> torch.Tensor:
+    """NTT (with omega) of the (B, rows, 8) batch x, rows <= n, zero-padded
+    to n rows, between K1 products by the (g, k) scales ``pre`` (on the
+    unpadded rows) and ``post`` (:func:`_scale`), each skipped when None;
+    -> a new (B, n, 8) tensor."""
+    dev, rows = x.device, x.shape[1]
+    if pre is not None:
+        x = L.mont_mul(FP_SPEC, x, _scale(*pre, n, dev)[:rows])
+    if rows < n:
+        padded = torch.zeros(x.shape[0], n, L.NLIMBS, dtype=torch.int32, device=dev)
+        padded[:, :rows] = x
+        x = padded
+    y = D.ntt(D.plan_for(P, n, omega, str(dev)), x)  # a new tensor: x is never written
+    if post is not None:
+        L.mont_mul(FP_SPEC, y, _scale(*post, n, dev), out=y)
+    return y
 
 
 def _maybe_sharded(batch, n: int, omega: int, pre_g: int = 1, post_g: int = 1, post_k: int = 1):
@@ -58,35 +87,28 @@ def lagrange_to_coeff_limbs(domain: EvaluationDomain, vals: torch.Tensor) -> tor
 
 
 def _lagrange_to_coeff_unsharded(domain: EvaluationDomain, vals: torch.Tensor) -> torch.Tensor:
-    dev = vals.device
-    plan_inv = D.plan_for(P, domain.n, pow(domain.omega, -1, P), str(dev))
-    m = D.intt(plan_inv, L.to_mont(FP_SPEC, vals), _n_inv(domain.n, dev))
-    return L.from_mont(FP_SPEC, m)
+    n = domain.n
+    return _ntt_scaled(vals, n, pow(domain.omega, -1, P), post=(1, pow(n, -1, P) * R))
 
 
 def coeff_to_lagrange_limbs(domain: EvaluationDomain, coeffs: torch.Tensor) -> torch.Tensor:
-    plan = D.plan_for(P, domain.n, domain.omega, str(coeffs.device))
-    return L.from_mont(FP_SPEC, D.ntt(plan, L.to_mont(FP_SPEC, coeffs)))
+    return _ntt_scaled(coeffs, domain.n, domain.omega)
 
 
-def coeff_to_extended_limbs(domain: EvaluationDomain, coeffs: torch.Tensor) -> torch.Tensor:
-    """(B, <= ext, 8) coefficients -> evaluations on the extended coset
-    {g_coset * ext_omega^i}."""
-    dev, ext = coeffs.device, domain.extended_n
-    padded = torch.zeros(coeffs.shape[0], ext, L.NLIMBS, dtype=torch.int32, device=dev)
-    padded[:, : coeffs.shape[1]] = coeffs
-    pm = L.to_mont(FP_SPEC, padded)
-    L.mont_mul(FP_SPEC, pm, _scale(domain.g_coset, ext, dev), out=pm)
-    plan = D.plan_for(P, ext, domain.extended_omega, str(dev))
-    return L.from_mont(FP_SPEC, D.ntt(plan, pm))
+def coeff_to_extended_limbs(domain: EvaluationDomain, coeffs: torch.Tensor, mont_out: bool = False) -> torch.Tensor:
+    """(B, <= ext, 8) canonical coefficients -> evaluations on the extended
+    coset {g_coset * ext_omega^i}, canonical or, with ``mont_out``, in
+    Montgomery form."""
+    pre = (domain.g_coset, R * R if mont_out else R)
+    return _ntt_scaled(coeffs, domain.extended_n, domain.extended_omega, pre=pre)
 
 
-def extended_to_coeff_limbs(domain: EvaluationDomain, evals: torch.Tensor) -> torch.Tensor:
-    dev, ext = evals.device, domain.extended_n
-    plan_inv = D.plan_for(P, ext, pow(domain.extended_omega, -1, P), str(dev))
-    pm = D.intt(plan_inv, L.to_mont(FP_SPEC, evals), _n_inv(ext, dev))
-    L.mont_mul(FP_SPEC, pm, _scale(domain.g_coset_inv, ext, dev), out=pm)
-    return L.from_mont(FP_SPEC, pm)
+def extended_to_coeff_limbs(domain: EvaluationDomain, evals: torch.Tensor, mont_in: bool = False) -> torch.Tensor:
+    """(B, ext, 8) evaluations on the extended coset, canonical or, with
+    ``mont_in``, in Montgomery form -> canonical coefficients."""
+    ext = domain.extended_n
+    post = (domain.g_coset_inv, pow(ext, -1, P) * (1 if mont_in else R))
+    return _ntt_scaled(evals, ext, pow(domain.extended_omega, -1, P), post=post)
 
 
 def _to_limbs(columns: list, size: int, device) -> torch.Tensor:
@@ -163,7 +185,8 @@ def batch_coeff_to_extended(domain: EvaluationDomain, polys: list, device) -> li
     out = _maybe_native(polys, ext, domain.extended_omega, pre_g=domain.g_coset)
     if out is not None:
         return out
-    return _to_lists(coeff_to_extended_limbs(domain, _to_limbs(polys, ext, device)))
+    rows = max(len(p) for p in polys)  # padded to ext on the device, after the coset scale
+    return _to_lists(coeff_to_extended_limbs(domain, _to_limbs(polys, rows, device)))
 
 
 def batch_extended_to_coeff(domain: EvaluationDomain, evals: list, device) -> list[list[int]]:

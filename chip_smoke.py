@@ -6,10 +6,12 @@ NVIDIA card.
 
 from the root of a checkout. In order, it
 
-1. builds the CUDA kernels of ``battlezips_halo2_tpu_torch/csrc`` with nvcc,
-   and reads the card's integer multiply rate (SMs, maximum SM clock) and
-   the multiplies of one Montgomery product (SASS of the built library) for
-   the operations bounds;
+1. builds the CUDA kernels of ``battlezips_halo2_tpu_torch/csrc`` with nvcc
+   and, beside them, the old build (``csrc/previous/``: K1's elementwise
+   and K3's lane-wise kernels before their redesign, on the 64-bit
+   product), and reads the card's integer multiply rate (SMs, maximum SM
+   clock) and the multiplies of one Montgomery product, 64-bit and carry
+   chain (SASS of the built libraries), for the operations bounds;
 1b. drives the serving path (``run_serving``), its counts set to 0 before it
    and read after: with no port artifact yet (``.artifacts/torch/``), a
    cold ``tools/torch_serve.py --bench-cold`` (a fresh server process
@@ -39,10 +41,16 @@ from the root of a checkout. In order, it
    shapes (a board commitment's 32 and 352 rows of 256 buckets, an IPA
    round's 2 rows of 4, signed c = 10's 104 rows of 513), and timed beside
    the old route (the two-level running sums, one lane-wise K3, or K6,
-   launch per addition). The launch-bound rows (elementwise K1, K4, K5,
-   the lane-wise K3 and K6, K7's 3-point MSM) are timed with the card
-   setting the pace (``ops/timing.py::device_paced_ms``), the host-paced
-   time beside each;
+   launch per addition). K3's lane-wise addition (1528 generic lanes) is
+   timed beside the old build's, and its fold (``bz_point_fold``) is held
+   against its plain version and the old route (D - 1 launches of the old
+   build's addition) coordinate for coordinate at D = 2, 3, 4 with the
+   special cases, and timed against that old route at D = 2 and 4 over a
+   board commit batch's 352 lanes, and at D = 4 for each block size. The
+   launch-bound rows (K4, K5, the lane-wise K3 and K6, K7's 3-point MSM,
+   and elementwise K1 below) are timed with the card setting the pace
+   (``ops/timing.py::device_paced_ms``), the host-paced time or the old
+   build's beside each;
 3. drives the port's proof path through its public API, reading the
    kernels' launch counts around every phase:
 
@@ -67,8 +75,9 @@ from the root of a checkout. In order, it
    configuration every phase must launch K3 exactly as often as K2 and K7
    together (one window aggregation per bucket pass), in the row
    configuration K6 exactly as often as K7, and a steady proof
-   at most 24 K1 (the quotient program in one launch); the steady proofs
-   also print their spans (``BZ_TORCH_TRACE=1``);
+   at most 7 K1 (the quotient program in one launch, one elementwise scale
+   per commitment batch's iNTT and two for the quotient's extensions); the
+   steady proofs also print their spans (``BZ_TORCH_TRACE=1``);
 3b. the native engine phase (``run_native_engine``), its counts set to 0
    before it and read after: builds the native host library with g++ and
    prints the command and the build time; proves the golden shot and board
@@ -93,8 +102,9 @@ from the root of a checkout. In order, it
    11-column commit batch over its [G | W] sharded against the unsharded
    kernels, bit for bit. It counts the launches of each configuration's
    steady sharded proof from 0 (the ``parallel_launches`` of the kernels
-   line) and holds them against a one-card proof's: the lane-wise K3 must
-   fold the partials, K2 never launch in the sharded commitments, and the
+   line) and holds them against a one-card proof's: K3's fold must add
+   the partials in one launch a commit batch (no lane-wise addition), K2
+   never launch in the sharded commitments, and the
    NTT stages must grow; no transform may be refused by the NTT's shape
    gate. With two cards visible it also runs
    ``tools/torch_multihost_ntt.py --procs 2`` over NCCL; with one it says
@@ -105,7 +115,14 @@ from the root of a checkout. In order, it
    K1's VM kernel bit-exact against the plain executor on the card (one
    elementwise K1 launch per instruction, the old route) and against its
    plain version, on the board's program and keys (one proof) and the
-   shot's (four proofs), and times all three;
+   shot's (four proofs), and times all three; holds K1's elementwise
+   kernel bit-exact against its plain version (Fp and Fq, every op, b
+   broadcast) and, at the board's shapes (the quotient's extension batch
+   (K, 2^15, 8) by its coset vector, the unpadded (K, 2^12, 8), h's
+   (1, 2^15, 8), a commit batch's (11, 2^12, 8) by one row, and the
+   (16384, 8) of earlier runs), checks and times the product device-paced
+   beside the old build's in turns, with its bytes bound and the share of
+   it, and at the first shape each block size;
 5. drives the microbenchmark path, ``tools/torch_exp_step_t.py`` at the
    reference's shapes, which holds K8 (one launch, and one launch per
    step) and K9 (every op) bit-exact against their plain chains and times
@@ -128,6 +145,7 @@ import random
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -138,6 +156,7 @@ PALLAS_KERNELS = "battlezips_halo2_tpu/ops/pallas_kernels.py"
 EXP_STEP_T = "tools/exp_step_t.py"
 MICROBENCHMARK = ROOT / "tools" / "torch_exp_step_t.py"
 SERVER = ROOT / "tools" / "torch_serve.py"
+PREVIOUS = PACKAGE / "csrc" / "previous"  # K1 elementwise and K3 lane-wise before their redesign
 T_START = time.time()
 
 # NVIDIA H100 SXM data sheet (dense, 700 W): the HBM rate. The field
@@ -152,7 +171,8 @@ INT_RESULTS_PER_SM_CLOCK = 64
 MAD_PER_MONT_MUL = 2 * 8 * 8 + 8  # CIOS: a * b, m * p, m per word
 # set by main() from the card and from the SASS of the built kernels
 OPS_PER_S = None  # 32-bit integer results per second
-MONT_MUL_RESULTS = None  # multiply results of one Montgomery product
+MONT_MUL_RESULTS = None  # multiply results of one Montgomery product (the 64-bit one of K2-K7)
+CC_MONT_MUL_RESULTS = None  # the same of the carry-chain product (K1 elementwise, K3 lane-wise)
 # per element of K9's ops, beside mul: redc is mul without the 64 wide
 # a * b products; add and sub are 8 limb adds, 8 limb subtracts and 8
 # selects; raw is 8 limb adds; noop does nothing
@@ -257,29 +277,110 @@ def _rand_canonical(rng: random.Random, n: int, dev):
     return limbs.to(torch.int32).to(dev)
 
 
-def check_k1(dev, rng: random.Random, rows: int, time_rows: int) -> dict:
-    """K1 against its plain version over Fp and Fq, all three ops; times the
-    Montgomery product at the quotient VM's register shape."""
+def build_previous() -> Path:
+    """The old build: K1's elementwise and K3's lane-wise kernels as they
+    were before their redesign (``csrc/previous/*.cu``, the 64-bit product),
+    beside a copy of ``csrc/field.cuh``, built apart from the port's
+    library; -> the library's path."""
+    import shutil
+
+    from battlezips_halo2_tpu_torch.ops import cuda
+
+    dst = cuda.BUILD_ROOT / "copies" / "previous"
+    shutil.rmtree(dst, ignore_errors=True)
+    dst.mkdir(parents=True)
+    for src in sorted(PREVIOUS.glob("*.cu")) + [cuda.CSRC / "field.cuh"]:
+        shutil.copy(src, dst / src.name)
+    return cuda.build(dst)
+
+
+def load_previous(path: Path):
+    """The old build, bound: its bz_field_op takes no block size."""
+    import ctypes
+
+    from battlezips_halo2_tpu_torch.ops import cuda
+
+    lib = cuda.load(path)
+    p, i64 = ctypes.c_void_p, ctypes.c_longlong
+    lib.bz_field_op.argtypes = (ctypes.c_int, p, p, p, p, i64, i64, p)
+    return lib
+
+
+def in_turns(cases: dict, reps: int) -> dict:
+    """{name: fn} timed device-paced in turns, each name in order and then
+    in reverse (tree, old, old, tree): -> {name: [ms, ms]}."""
+    from battlezips_halo2_tpu_torch.ops.timing import device_paced_ms
+
+    out = {name: [] for name in cases}
+    for name in list(cases) + list(cases)[::-1]:
+        out[name].append(device_paced_ms(cases[name], reps))
+    return out
+
+
+def _mean(xs) -> float:
+    return sum(xs) / len(xs)
+
+
+K1_THREADS = (64, 128, 256, 512, 1024)  # block sizes timed at every shape
+
+
+def check_k1(dev, rng: random.Random, rows: int, old, shapes: dict) -> dict:
+    """K1's elementwise kernel against its plain version over Fp and Fq, all
+    three ops, with b full, one row (nb = 1) and one batch row long; then at
+    each of ``shapes`` ({name: (batch, rows, b rows)}: the proof path's),
+    the Montgomery product checked bit-exact and timed device-paced beside
+    the old build's (``old``, csrc/previous/field_ops.cu) in turns, and
+    every block size of K1_THREADS. The first shape is the row's."""
+    import torch
+
     from battlezips_halo2_tpu_torch.fields import limb as L
+    from battlezips_halo2_tpu_torch.ops import cuda
+    from battlezips_halo2_tpu_torch.ops.timing import device_paced_ms
 
     err = 0
     for spec in (L.FP_SPEC, L.FQ_SPEC):
         a, b = _rand_field(rng, spec.modulus, rows, dev), _rand_field(rng, spec.modulus, rows, dev)
         for op in (L.OP_MUL, L.OP_ADD, L.OP_SUB):
-            got, want = L.field_op(op, spec, a, b), L.plain_field_op(op, spec, a, b)
-            err = max(err, max_abs_err(got, want))
-        # broadcast operand (one row), as to_mont / from_mont use it
-        got = L.to_mont(spec, a)
-        err = max(err, max_abs_err(got, L.plain_field_op(L.OP_MUL, spec, a, spec.const("r2", dev))))
+            for bb in (b, b[:1], b[: rows // 8]):
+                got, want = L.field_op(op, spec, a, bb), L.plain_field_op(op, spec, a, bb)
+                err = max(err, max_abs_err(got, want))
     spec = L.FP_SPEC
-    a, b = _rand_field(rng, spec.modulus, time_rows, dev), _rand_field(rng, spec.modulus, time_rows, dev)
-    out = a.clone()
-    ms, host = paced(lambda: L.field_op(L.OP_MUL, spec, a, b, out=out), 200)
-    plain = cuda_ms(lambda: L.plain_field_op(L.OP_MUL, spec, a, b), 5)
-    bms, by = bound_ms(time_rows * 3 * 32, time_rows * MONT_MUL_RESULTS)
-    shape = f"mont_mul over ({time_rows}, 8) Fp, device-paced"
-    return {"max_abs_err": err, "ms": ms, "host_paced_ms": host, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "shape": shape}
+    consts = spec.kernel_consts
+
+    def raw(lib, a, b, out, threads=None):
+        n, nb = a.numel() // 8, b.numel() // 8
+        args = (L.OP_MUL, consts, cuda.ptr(a), cuda.ptr(b), cuda.ptr(out), n, nb)
+        cuda.check(lib.bz_field_op(*args, *(() if threads is None else (threads,)), cuda.stream(a)), "K1 bz_field_op")
+
+    per_shape = []
+    for name, (batch, nrows, nb) in shapes.items():
+        a = _rand_canonical(rng, batch * nrows, dev).view(batch, nrows, 8)
+        b = _rand_canonical(rng, nb, dev)
+        want, plain = once_ms(lambda: L.plain_field_op(L.OP_MUL, spec, a, b))
+        out, old_out = L.field_op(L.OP_MUL, spec, a, b), torch.empty_like(a)
+        raw(old, a, b, old_out)
+        shape_err = max(max_abs_err(out, want), max_abs_err(old_out, want))
+        err = max(err, shape_err)
+        reps = 100 if batch * nrows >= 1 << 18 else 200
+        turns = in_turns({"tree": lambda: L.field_op(L.OP_MUL, spec, a, b, out=out),
+                          "old": lambda: raw(old, a, b, old_out)}, reps)
+        n = batch * nrows
+        bms, by = bound_ms((2 * n + nb) * 32, n * CC_MONT_MUL_RESULTS)
+        row = {"shape": f"{name}: ({batch}, {nrows}, 8) by ({nb}, 8) Fp", "rows": n, "b_rows": nb,
+               "ms": _mean(turns["tree"]), "old_build_ms": _mean(turns["old"]), "turns": turns, "plain_ms": plain,
+               "bound_ms": bms, "bound_by": by, "share_of_bound": bms / _mean(turns["tree"]), "max_abs_err": shape_err}
+        row["threads_ms"] = {t: device_paced_ms(lambda t=t: raw(cuda.library(), a, b, out, t), reps)
+                             for t in K1_THREADS}
+        row["threads"] = L.FIELD_OP_THREADS
+        per_shape.append(row)
+        log(f"  K1 elementwise {row['shape']}: {row['ms']:.4f} ms (turns {turns['tree']}), old build "
+            f"{row['old_build_ms']:.4f} ms (turns {turns['old']}), plain {plain:.1f} ms, bound {bms:.6f} ms ({by}), "
+            f"{100 * row['share_of_bound']:.0f} % of it; max_abs_err {shape_err}; block sizes {row['threads_ms']}")
+    first = per_shape[0]
+    return {"max_abs_err": err, "ms": first["ms"], "old_build_ms": first["old_build_ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": None, "shape": f"{first['shape']}, device-paced (per_shape: every shape)",
+            "per_shape": per_shape}
 
 
 def check_k4(dev, rng: random.Random, sizes, time_batch: int, time_logn: int) -> dict:
@@ -360,14 +461,18 @@ def _point_pairs(dev, rng: random.Random, lanes: int):
     return P, Q, 5 * k + 8
 
 
-def check_k3(dev, rng: random.Random, lanes: int) -> dict:
+def check_k3(dev, rng: random.Random, lanes: int, old) -> dict:
     """K3 against point_add_plain over random Jacobian points with identity,
-    P == Q (same and different Z), P == -Q lanes."""
+    P == Q (same and different Z), P == -Q lanes; times it on the generic
+    lanes beside the old build's (``old``, csrc/previous/point_add.cu) in
+    turns."""
     import torch
 
     from battlezips_halo2_tpu_torch.curves import limb as C
     from battlezips_halo2_tpu_torch.curves.host import VESTA
     from battlezips_halo2_tpu_torch.fields.limb import FQ_SPEC
+    from battlezips_halo2_tpu_torch.ops import cuda
+    from battlezips_halo2_tpu_torch.ops.timing import host_paced_ms
 
     spec = FQ_SPEC
     P, Q, generic = _point_pairs(dev, rng, lanes)
@@ -376,14 +481,105 @@ def check_k3(dev, rng: random.Random, lanes: int) -> dict:
     want = [VESTA.add(a, b) for a, b in zip(C.jacobian_to_affine(spec, P), C.jacobian_to_affine(spec, Q))]
     if C.jacobian_to_affine(spec, got) != want:
         raise AssertionError("K3 point_add disagrees with the host group law")
-    out = torch.empty_like(P)
+    out, old_out = torch.empty_like(P), torch.empty_like(P)
     R, S = P[generic:].contiguous(), Q[generic:].contiguous()  # generic lanes only
-    ms, host = paced(lambda: C.point_add(spec, R, S, out=out[: R.shape[0]]), 100)
+    n = R.shape[0]
+
+    def old_add():
+        cuda.check(old.bz_point_add(spec.kernel_consts, cuda.ptr(R), cuda.ptr(S), cuda.ptr(old_out), n,
+                                    cuda.stream(R)), "K3 bz_point_add (old build)")
+
+    old_add()
+    err = max(err, max_abs_err(old_out[:n], C.point_add(spec, R, S)))
+
+    def tree_add():
+        C.point_add(spec, R, S, out=out[:n])
+
+    turns = in_turns({"tree": tree_add, "old": old_add}, 100)
+    ms, host = _mean(turns["tree"]), host_paced_ms(tree_add, 100)
     plain = cuda_ms(lambda: C.point_add_plain(spec, R, S), 2)
-    bms, by = bound_ms(R.shape[0] * 3 * 96, R.shape[0] * 16 * MONT_MUL_RESULTS)
-    shape = f"{R.shape[0]} generic lanes, Vesta, device-paced"
-    return {"max_abs_err": err, "ms": ms, "host_paced_ms": host, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "shape": shape}
+    bms, by = bound_ms(n * 3 * 96, n * 16 * CC_MONT_MUL_RESULTS)
+    shape = f"{n} generic lanes, Vesta, device-paced"
+    log(f"  K3 lane-wise point_add, {shape}: {ms:.4f} ms; in turns tree {turns['tree']}, old build {turns['old']}")
+    return {"max_abs_err": err, "ms": ms, "host_paced_ms": host, "old_build_ms": _mean(turns["old"]),
+            "turns": turns, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": None, "shape": shape}
+
+
+FOLD_LANES = 11 * 32  # a board commit batch's (MSM, window) lanes: 11 columns x 32 windows (c = 8)
+FOLD_DEPTHS = (2, 4)  # shards of the fold: two shards on one card, one shard a card on four
+FOLD_THREADS = (32, 64, 128, 256)  # block sizes timed at D = 4
+
+
+def _generic_stack(dev, rng: random.Random, d: int, lanes: int):
+    """(d, lanes, 3, 8) Vesta points with non-trivial Z, no two equal."""
+    from battlezips_halo2_tpu_torch.curves import limb as C
+    from battlezips_halo2_tpu_torch.fields.limb import FQ_SPEC
+
+    pts = _vesta_points(rng, 2 * d * lanes)
+    jac = C.affine_to_jacobian(FQ_SPEC, pts, dev).view(2, d * lanes, 3, 8)
+    return C.point_add_plain(FQ_SPEC, jac[0], jac[1]).view(d, lanes, 3, 8).contiguous()
+
+
+def check_k3_fold(dev, rng: random.Random, old) -> dict:
+    """K3's fold (bz_point_fold) against its plain version and against the
+    old route, D - 1 launches of the old build's bz_point_add, coordinate
+    for coordinate: at D = 2, 3 and 4 over FOLD_LANES lanes whose first two
+    layers hold the identity, P == Q and P == -Q cases, and on 1 and 1528
+    lanes. Then at each D of FOLD_DEPTHS over FOLD_LANES generic lanes, the
+    fold and the old route timed device-paced in turns, and at D = 4 every
+    block size of FOLD_THREADS."""
+    import torch
+
+    from battlezips_halo2_tpu_torch.curves import limb as C
+    from battlezips_halo2_tpu_torch.fields.limb import FQ_SPEC
+    from battlezips_halo2_tpu_torch.ops import cuda
+    from battlezips_halo2_tpu_torch.ops.timing import device_paced_ms
+
+    spec = FQ_SPEC
+
+    def old_route(stack, accs):
+        """acc = s[0]; acc = acc + s[k] by one old-build launch each, into
+        the preallocated (D - 1, lanes, 3, 8) ``accs``."""
+        lanes, prev = stack.shape[1], stack[0]
+        for k in range(1, stack.shape[0]):
+            cuda.check(old.bz_point_add(spec.kernel_consts, cuda.ptr(prev), cuda.ptr(stack[k]), cuda.ptr(accs[k - 1]),
+                                        lanes, cuda.stream(stack)), "K3 bz_point_add (old build)")
+            prev = accs[k - 1]
+        return prev
+
+    err = 0
+    for d, lanes in ((2, FOLD_LANES), (3, FOLD_LANES), (4, FOLD_LANES), (4, 1), (3, 1528)):
+        P, Q, _ = _point_pairs(dev, rng, max(lanes, 64))
+        layers = [P, Q] + (list(_generic_stack(dev, rng, d - 2, P.shape[0])) if d > 2 else [])
+        stack = torch.stack(layers)[:, :lanes].contiguous()
+        got = C.point_fold(spec, stack)
+        accs = torch.empty((d - 1,) + tuple(stack.shape[1:]), dtype=torch.int32, device=dev)
+        err = max(err, max_abs_err(got, C.point_fold_plain(spec, stack)), max_abs_err(got, old_route(stack, accs)))
+    per_depth = []
+    for d in FOLD_DEPTHS:
+        stack = _generic_stack(dev, rng, d, FOLD_LANES)
+        accs = torch.empty((d - 1,) + tuple(stack.shape[1:]), dtype=torch.int32, device=dev)
+        err = max(err, max_abs_err(C.point_fold(spec, stack), old_route(stack, accs)))
+        turns = in_turns({"fold": lambda: C.point_fold(spec, stack), "old": lambda: old_route(stack, accs)}, 100)
+        plain = cuda_ms(lambda: C.point_fold_plain(spec, stack), 2)
+        bms, by = bound_ms((d + 1) * FOLD_LANES * 96, (d - 1) * FOLD_LANES * 16 * CC_MONT_MUL_RESULTS)
+        row = {"d": d, "lanes": FOLD_LANES, "threads": cuda.chain_grid(FOLD_LANES, cuda.sm_count(stack.device))[0],
+               "ms": _mean(turns["fold"]), "old_route_ms": _mean(turns["old"]), "turns": turns, "plain_ms": plain,
+               "bound_ms": bms, "bound_by": by}
+        if d == max(FOLD_DEPTHS):
+            out = torch.empty_like(stack[0])
+
+            def fold_with(threads):
+                cuda.check(cuda.library().bz_point_fold(spec.kernel_consts, cuda.ptr(stack), cuda.ptr(out), d,
+                                                        FOLD_LANES, threads, cuda.stream(stack)), "K3 bz_point_fold")
+
+            row["threads_ms"] = {t: device_paced_ms(lambda t=t: fold_with(t), 100) for t in FOLD_THREADS}
+        per_depth.append(row)
+        log(f"  K3 fold D = {d} over {FOLD_LANES} lanes ({row['threads']} threads a block): {row['ms']:.4f} ms "
+            f"(turns {turns['fold']}), old route ({d - 1} launches, old build) {row['old_route_ms']:.4f} ms (turns "
+            f"{turns['old']}), {row['ms'] / row['old_route_ms']:.2f}x; plain {plain:.1f} ms, bound {bms:.6f} ms ({by})"
+            + (f"; block sizes {row['threads_ms']}" if "threads_ms" in row else ""))
+    return {"max_abs_err": err, "per_depth": per_depth}
 
 
 def _bucket_rows(dev, rng: random.Random, rows: int, nbuck: int):
@@ -858,7 +1054,9 @@ def _tampered(proof: bytes) -> bytes:
     return proof[:mid] + bytes([proof[mid] ^ 1]) + proof[mid + 1 :]
 
 
-STEADY_K1_MAX = 24  # quotient program in one launch + to_mont / from_mont / coset and iNTT scales
+# the quotient program in one launch + one elementwise scale per commitment
+# batch's iNTT and per quotient extension (poly/transforms.py)
+STEADY_K1_MAX = 7
 
 
 def _steady(timed: Phases, name: str, prove):
@@ -870,7 +1068,7 @@ def _steady(timed: Phases, name: str, prove):
     finally:
         os.environ.pop("BZ_TORCH_TRACE")
     k1 = timed.launches[name]["K1"]
-    log(f"K1 launches in {name}: {k1}")
+    log(f"K1 launches in {name}: {k1} ({timed.entries[name].get('bz_field_op', 0)} elementwise)")
     if k1 > STEADY_K1_MAX:
         raise AssertionError(f"{name}: {k1} K1 launches, more than {STEADY_K1_MAX}")
     return proof
@@ -1263,7 +1461,7 @@ def _check_sharded_launches(tag: str, d: int, entry: dict) -> int:
     proof's of the same configuration; -> the sharded commit batches.
     Each sharded commit batch runs one complete bucket pass (K7) a shard
     where one card runs one pass (K2 in the default configuration, K7 in
-    the row one), and folds the D partials by D - 1 lane-wise K3 launches,
+    the row one), and folds the D partials in one launch of K3's fold,
     which nothing else of a proof calls; the IPA's MSMs stay as on one
     card. So the bucket passes (K2 + K7) grow by D - 1 a batch, and K2
     falls by the batches in the default configuration: no K2 inside the
@@ -1272,7 +1470,7 @@ def _check_sharded_launches(tag: str, d: int, entry: dict) -> int:
     sharded, one = entry["launches"], entry["one_card_launches"]
     passes = sharded["K2"] + sharded["K7"] - one.get("K2", 0) - one.get("K7", 0)
     batches, rest = divmod(passes, d - 1)
-    fold = entry["entries"].get("bz_point_add", 0)
+    fold = entry["entries"].get("bz_point_fold", 0)
     k2 = one.get("K2", 0) - (batches if tag == "default" else 0)
     stage = "K5" if tag == "row" else "K4"
     faults = [f"kernel {k} not launched" for k in PARALLEL_PATH_KERNELS[tag] if sharded[k] <= 0]
@@ -1281,9 +1479,11 @@ def _check_sharded_launches(tag: str, d: int, entry: dict) -> int:
         faults.append(f"no {window} launch: the shards' window sums did not run")
     if rest or batches < 1:
         faults.append(f"{passes} more bucket passes than one card, not a positive multiple of D - 1 = {d - 1}")
-    if fold != (d - 1) * batches:
-        faults.append(f"{fold} lane-wise K3 launches, not (D - 1) x {batches} batches")
-    if entry["one_card_entries"].get("bz_point_add", 0):
+    if fold != batches:
+        faults.append(f"{fold} K3 fold launches, not one for each of {batches} batches")
+    if entry["entries"].get("bz_point_add", 0):
+        faults.append("the sharded proof launched K3's lane-wise addition")
+    if any(entry["one_card_entries"].get(e, 0) for e in ("bz_point_add", "bz_point_fold")):
         faults.append("the one-card proof launched the lane-wise K3")
     if sharded["K2"] != k2:
         faults.append(f"K2 {sharded['K2']}, not {k2}: K2 launched inside the sharded commitments")
@@ -1377,7 +1577,7 @@ def run_parallel(dev, timed: Phases) -> dict:
         launches, entries = entry["launches"], entry["entries"]
         log(f"sharded board proof [{tag}] on {card}: {entry['sharded_s']:.3f} s against {entry['one_card_s']:.3f} s "
             f"on one card; launches K1 {launches['K1']}, K3 window {entries.get('bz_window_sums', 0)}, K3 lane-wise "
-            f"{entries.get('bz_point_add', 0)}, K4 {launches['K4']}, K5 {launches['K5']}, K6 {launches['K6']}, K7 "
+            f"{entries.get('bz_point_fold', 0)} (fold), K4 {launches['K4']}, K5 {launches['K5']}, K6 {launches['K6']}, K7 "
             f"{launches['K7']}, K2 {launches['K2']}; {entry['commit_batches']} sharded commit batches; one card: "
             f"{entry['one_card_launches']}")
         for key in ("profile_sharded", "profile_one_card"):
@@ -1660,20 +1860,23 @@ def card_int_rate() -> tuple[float, int, float]:
     return INT_RESULTS_PER_SM_CLOCK * sms * clock, sms, clock
 
 
-def sass_mont_mul(lib: Path) -> tuple[tuple[int, int], tuple[int, int]]:
-    """Multiply instructions and results of one Montgomery product in the
-    built library, a kernel's multiply variant minus its add variant, which
-    share every instruction but the product's: K1's (the 64-bit product of
-    the proof path, which the operations bounds count) and K9's (the
-    carry-chain product of K8 and K9)."""
+def sass_mont_mul(lib: Path, old_lib: Path) -> dict:
+    """Multiply instructions and results of one Montgomery product, a
+    kernel's multiply variant minus its add variant, which share every
+    instruction but the product's: K1's elementwise kernel in the old build
+    (the 64-bit product, which K2-K7 still use), in the tree's build and
+    K9's (the carry-chain product of K1 elementwise, K3 lane-wise, K8 and
+    K9). -> {name: (instructions, results)}."""
     from battlezips_halo2_tpu_torch.ops import cuda
 
-    counts = cuda.sass_counts(lib)
-    out = []
-    for kernel in ("_Z15field_op_kernelILi", "_Z15op_chain_kernelILi"):
+    out = {}
+    for name, path, kernel in (("64-bit", old_lib, "_Z15field_op_kernelILi"),
+                               ("carry chain, K1", lib, "_Z15field_op_kernelILi"),
+                               ("carry chain, K9", lib, "_Z15op_chain_kernelILi")):
+        counts = cuda.sass_counts(path)
         (mul,), (add,) = ([v for k, v in counts.items() if k.startswith(f"{kernel}{op}E")] for op in (0, 1))
-        out.append((mul[1] - add[1], mul[2] - add[2]))
-    return out[0], out[1]
+        out[name] = (mul[1] - add[1], mul[2] - add[2])
+    return out
 
 
 def report_rows(rows: dict) -> None:
@@ -1713,19 +1916,27 @@ def main() -> int:
     dev = torch.device("cuda")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t = time.time()
-    lib = cuda.build()
+    with ThreadPoolExecutor(max_workers=1) as pool:  # the old build beside the port's, each nvcc in parallel
+        previous = pool.submit(build_previous)
+        lib = cuda.build()
+        old_lib = previous.result()
     cuda.library()
-    log(f"phase build: {time.time() - t:.3f} s ({lib})")
+    old = load_previous(old_lib)
+    log(f"phase build: {time.time() - t:.3f} s ({lib}; old build of csrc/previous/ {old_lib})")
     for line in cuda.ptxas_report(lib):
         log(f"  ptxas {line}")
+    for line in cuda.ptxas_report(old_lib):
+        log(f"  ptxas [old build] {line}")
 
-    global OPS_PER_S, MONT_MUL_RESULTS
+    global OPS_PER_S, MONT_MUL_RESULTS, CC_MONT_MUL_RESULTS
     OPS_PER_S, sms, clock = card_int_rate()
-    (instrs, MONT_MUL_RESULTS), (cc_instrs, cc_results) = sass_mont_mul(lib)
+    products = sass_mont_mul(lib, old_lib)
+    MONT_MUL_RESULTS, CC_MONT_MUL_RESULTS = products["64-bit"][1], products["carry chain, K1"][1]
     log(f"operations bound: {INT_RESULTS_PER_SM_CLOCK} results/SM/clock x {sms} SMs x {clock / 1e6:.0f} MHz = "
-        f"{OPS_PER_S:.4g}/s; Montgomery product in SASS: {instrs} multiply instructions "
-        f"(CIOS count {MAD_PER_MONT_MUL}), {MONT_MUL_RESULTS} results; the carry-chain product of K8 / K9: "
-        f"{cc_instrs} multiply instructions, {cc_results} results (the bounds count {MONT_MUL_RESULTS})")
+        f"{OPS_PER_S:.4g}/s; Montgomery product in SASS (CIOS count {MAD_PER_MONT_MUL}): "
+        + "; ".join(f"{k} {i} multiply instructions, {r} results" for k, (i, r) in products.items())
+        + f" (the bounds count {MONT_MUL_RESULTS} for the 64-bit kernels, {CC_MONT_MUL_RESULTS} for K1 elementwise "
+        "and K3 lane-wise)")
 
     # the serving path: tools/torch_serve.py cold and warm, then in process on both engines
     cuda.reset_launches()
@@ -1736,10 +1947,11 @@ def main() -> int:
 
     rng = random.Random(2024)
     t = time.time()
-    lane_wise = {"K1": check_k1(dev, rng, 1 << 13, 1 << 14)}
-    rows = {}
+    lane_wise, rows = {}, {}
     rows["K4"] = check_k4(dev, rng, [(4, 11), (2, 13)], 44, 14)
-    lane_wise["K3"] = check_k3(dev, rng, 4096)
+    lane_wise["K3"] = check_k3(dev, rng, 4096, old)
+    lane_wise["K3"]["fold"] = check_k3_fold(dev, rng, old)
+    lane_wise["K3"]["max_abs_err"] = max(lane_wise["K3"]["max_abs_err"], lane_wise["K3"]["fold"]["max_abs_err"])
     # a board commit batch's window sums (c = 8: 32 windows of 256 buckets, one
     # column and 11 columns), an IPA round's (c = 2), signed c = 10 (26 windows x 4)
     window_shapes = [(352, 256), (32, 256), (2, 4), (104, 513)]
@@ -1748,7 +1960,7 @@ def main() -> int:
     rows["K6"] = check_k6_windows(dev, rng, window_shapes)
     lane_wise["K6"] = check_k6(dev, rng, 4096)
     log(f"phase kernels vs plain: {time.time() - t:.3f} s")
-    report_rows({**rows, "K1 elementwise field_op": lane_wise["K1"], "K3 lane-wise point_add": lane_wise["K3"],
+    report_rows({**rows, "K3 lane-wise point_add and fold": lane_wise["K3"],
                  "K6 lane-wise point_add_planes": lane_wise["K6"]})
     for name in ("K3", "K6"):
         for r in rows[name]["per_shape"]:
@@ -1791,8 +2003,21 @@ def main() -> int:
     from battlezips_halo2_tpu_torch.plonk.arguments import ProofSchedule
 
     vk = api.board_keys(dev)[1].vk
-    batch = len(quotient_poly_keys(vk.cs, ProofSchedule.build(vk.cs).num_perm_chunks))
-    rows["K5"] = check_k5(dev, rng, [(4, 11), (2, 13)], batch, vk.domain.extended_n.bit_length() - 1)
+    keys = quotient_poly_keys(vk.cs, ProofSchedule.build(vk.cs).num_perm_chunks)
+    rows["K5"] = check_k5(dev, rng, [(4, 11), (2, 13)], len(keys), vk.domain.extended_n.bit_length() - 1)
+    # K1's elementwise product at the board's shapes: the polynomials each
+    # proof's quotient extends (K), the domain n and the extended domain
+    per_proof = sum(k[0] not in ("fixed", "sigma") for k in keys)
+    n, ext = vk.domain.n, vk.domain.extended_n
+    lane_wise["K1"] = check_k1(dev, rng, 1 << 13, old, {
+        "quotient extension batch (the coset pre-scale's shape while it ran on the padded batch)": (per_proof, ext, ext),
+        "quotient coset pre-scale (unpadded coefficients)": (per_proof, n, n),
+        "h's coset and 1/n post-scale": (1, ext, ext),
+        "2^20 rows by a coset vector (the block size's reference shape)": (32, ext, ext),
+        "commit group's iNTT 1/n scale": (BOARD_COMMIT_BATCH, n, 1),
+        "the shape of earlier timings": (1, 1 << 14, 1 << 14),
+    })
+    report_rows({"K1 elementwise field_op": lane_wise["K1"]})
     # K1's VM on the board's program (one proof) and the shot's (four proofs)
     t = time.time()
     rows["K1"] = check_k1_vm(dev, rng, vk, api.shot_keys(dev)[1].vk)

@@ -21,6 +21,7 @@ from battlezips_halo2_tpu.ops import pallas_kernels as PK
 from battlezips_halo2_tpu_torch.curves import limb as C
 from battlezips_halo2_tpu_torch.curves.host import PALLAS, VESTA
 from battlezips_halo2_tpu_torch.fields import limb as L
+from test_torch_inputs import fold_stack
 
 CURVES = {"vesta": VESTA, "pallas": PALLAS}
 
@@ -175,3 +176,41 @@ def test_point_add_planes_matches_jax_pallas():
         jspec, *(JC.JacobianPoint(*(JL.ints_to_limbs(v) for v in _ints(t))) for t in (p, q)), interpret=True
     )
     assert [L.limbs_to_ints(c) for c in got] == [JL.limbs_to_ints(np.asarray(c)) for c in ref]
+
+
+
+@pytest.mark.parametrize("d", [2, 3, 4])
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_point_fold_matches_jax_left_to_right(name, d):
+    """K3's fold (its plain version on the CPU) equals the JAX package's
+    left-to-right loop of curves/limb.py::point_add over the stack
+    (battlezips_halo2_tpu/parallel/msm.py's fold) in Jacobian coordinates,
+    and the host group law's sum in affine ones."""
+    curve = CURVES[name]
+    spec = L.FieldSpec.make(curve.base.modulus)
+    stack = fold_stack(curve, spec, d, seed=40 + d)
+    got = C.point_fold(spec, stack)
+    assert torch.equal(got, C.point_fold_plain(spec, stack))
+    jspec = JL.FieldSpec.make(curve.base.modulus)
+    layers = [JC.JacobianPoint(*(JL.ints_to_limbs(v) for v in _ints(stack[k]))) for k in range(d)]
+    ref = layers[0]
+    for layer in layers[1:]:
+        ref = JC.point_add(jspec, ref, layer)
+    assert _ints(got) == [JL.limbs_to_ints(np.asarray(c)) for c in ref]
+    want = []
+    for lane in zip(*(C.jacobian_to_affine(spec, stack[k]) for k in range(d))):
+        acc = None
+        for p in lane:
+            acc = curve.add(acc, p)
+        want.append(acc)
+    assert C.jacobian_to_affine(spec, got) == want
+    assert want[1] is not None and want[0] is not None
+
+
+def test_point_fold_of_one_layer_is_a_copy():
+    spec = L.FQ_SPEC
+    stack = fold_stack(VESTA, spec, 2, seed=7)[:1]
+    got = C.point_fold(spec, stack)
+    assert torch.equal(got, stack[0]) and got.data_ptr() != stack.data_ptr()
+    with pytest.raises(ValueError):
+        C.point_fold(spec, stack[0, 0])

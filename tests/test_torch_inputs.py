@@ -5,17 +5,20 @@ without JAX: ``MulCircuit`` is tests/test_prover.py::MulCircuit and
 layer; ``bucket_rows`` makes rows of MSM bucket sums with the identity,
 equal and opposite buckets forced in; ``hand_bucket_runs`` makes sorted
 bucket runs laid out on chunk boundaries and ``host_bucket_walk`` their
-sums and collision flags by the host group law. The tests here check the inputs'
+sums and collision flags by the host group law; ``fold_stack`` makes the
+layers of partial sums that K3's fold adds, with its special cases. The tests here check the inputs'
 shape: the pins of the circuits' quotient programs, and the buckets' value.
 """
 
 import random
 
+import numpy as np
 import pytest
 import torch
 
 from battlezips_halo2_tpu_torch.curves import limb as C
 from battlezips_halo2_tpu_torch.curves.host import VESTA
+from battlezips_halo2_tpu_torch.fields import limb as L
 from battlezips_halo2_tpu_torch.fields.limb import FP_SPEC, FQ_SPEC, ints_to_limbs
 from battlezips_halo2_tpu_torch.ops import gate_eval as G
 from battlezips_halo2_tpu_torch.gadgets.common import with_selector
@@ -237,6 +240,50 @@ def in_place_program(device):
             t = (u[(i + 1) % ext] + v[i]) ** 2 % p
             want.append((t * y - t) % p)
     return (prog, desc, sources, t_inv, nb, 5), want
+
+
+def _rescaled(spec, jac: torch.Tensor, lam: int) -> torch.Tensor:
+    """The same points with Z multiplied by lam: (X lam^2, Y lam^3, Z lam)."""
+    lam_m = ints_to_limbs([lam * spec.r_mod_p % spec.modulus], jac.device)
+    lam2 = L.mont_mul_plain(spec, lam_m, lam_m)
+    lam3 = L.mont_mul_plain(spec, lam2, lam_m)
+    x, y, z = jac.unbind(-2)
+    return torch.stack((L.mont_mul_plain(spec, x, lam2), L.mont_mul_plain(spec, y, lam3),
+                        L.mont_mul_plain(spec, z, lam_m)), dim=-2)
+
+
+def _negated(curve, spec, jac: torch.Tensor) -> torch.Tensor:
+    return C.affine_to_jacobian(spec, [curve.neg(p) for p in C.jacobian_to_affine(spec, jac)], jac.device)
+
+
+def fold_stack(curve, spec, d: int, seed: int, lanes: int = 12) -> torch.Tensor:
+    """(d, lanes, 3, 8) Jacobian points from a numpy seed, with non-trivial
+    Z (on the CPU): lane 0 starts at the identity; the second layer holds
+    the identity (lane 1), P == Q in equal (2) and unequal Z (3) and
+    P == -Q (4, so the third layer adds to the identity); from the third
+    layer on, lanes 5 and 6 hold the running sum (unequal Z) and its
+    negation. The points are running sums of 16 seeded multiples of the
+    generator, so no two are equal."""
+    rng = np.random.default_rng(seed)
+    base = [curve.mul(curve.generator, int(s)) for s in rng.integers(1, 1 << 62, size=16)]
+    pts = [base[0]]
+    for i in range(1, 2 * d * lanes):
+        pts.append(curve.add(pts[-1], base[i % 16]))
+    jac = C.affine_to_jacobian(spec, pts, "cpu").view(2, d, lanes, 3, 8)
+    stack = C.point_add_plain(spec, jac[0], jac[1])
+    if lanes < 7:
+        return stack.contiguous()
+    stack[0, 0] = C.infinity(spec, (), "cpu")
+    stack[1, 1] = C.infinity(spec, (), "cpu")
+    stack[1, 2] = stack[0, 2]
+    stack[1, 3] = _rescaled(spec, stack[0, 3:4], int(rng.integers(2, 1 << 62)))[0]
+    stack[1, 4] = _negated(curve, spec, stack[0, 4:5])[0]
+    acc = C.point_add_plain(spec, stack[0], stack[1])
+    for k in range(2, d):
+        stack[k, 5] = _rescaled(spec, acc[5:6], int(rng.integers(2, 1 << 62)))[0]
+        stack[k, 6] = _negated(curve, spec, acc[6:7])[0]
+        acc = C.point_add_plain(spec, acc, stack[k])
+    return stack.contiguous()
 
 
 @pytest.fixture(autouse=True)

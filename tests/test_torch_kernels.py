@@ -17,7 +17,7 @@ from battlezips_halo2_tpu_torch.ops import msm as M
 from battlezips_halo2_tpu_torch.ops import ntt as D
 from battlezips_halo2_tpu_torch.plonk.arguments import ProofSchedule
 from test_torch_inputs import (
-    bucket_rows, hand_bucket_runs, host_bucket_walk, host_window_sum, in_place_program, port_vk,
+    bucket_rows, fold_stack, hand_bucket_runs, host_bucket_walk, host_window_sum, in_place_program, port_vk,
 )
 
 pytestmark = pytest.mark.gpu
@@ -44,6 +44,49 @@ def test_k1_field_op(cuda, spec, op):
     assert torch.equal(L.field_op(op, spec, a, row), L.plain_field_op(op, spec, a, row))
 
 
+def _edge_field(rng, p, n, dev):
+    """n elements: runs of 0, 1, p - 1, p - 2 between random values."""
+    return L.ints_to_limbs([(0, 1, p - 1, p - 2)[i % 4] if i % 8 < 4 else rng.randrange(p) for i in range(n)], dev)
+
+
+@pytest.mark.parametrize("batch, rows, nb", [(1, 1000, 1000), (3, 1000, 1), (3, 1000, 1000), (7, 333, 333),
+                                             (2, 4103, 1), (1, 1, 1)],
+                         ids=["nb=n", "nb=1", "nb=row", "ragged-row", "ragged-nb=1", "one"])
+@pytest.mark.parametrize("op", [L.OP_MUL, L.OP_ADD, L.OP_SUB], ids=["mul", "add", "sub"])
+@pytest.mark.parametrize("spec", [L.FP_SPEC, L.FQ_SPEC], ids=["Fp", "Fq"])
+def test_k1_field_op_edges_and_broadcast(cuda, spec, op, batch, rows, nb):
+    """K1 on edge values (0, 1, p - 1, p - 2) with b broadcast over a's
+    batch (nb = 1, nb = a row) and rows that are no multiple of the block,
+    also with the output in place of a, and of b where b is as long as a."""
+    rng = random.Random(rows + op)
+    a = _edge_field(rng, spec.modulus, batch * rows, cuda).view(batch, rows, 8)
+    b = _edge_field(rng, spec.modulus, nb, cuda)
+    want = L.plain_field_op(op, spec, a, b)
+    assert torch.equal(L.field_op(op, spec, a, b), want)
+    into = a.clone()
+    assert torch.equal(L.field_op(op, spec, into, b, out=into), want)
+    if batch * rows == nb:
+        into = b.clone()
+        assert torch.equal(L.field_op(op, spec, a, into, out=into.view(a.shape)).view(b.shape), want.view(b.shape))
+
+
+@pytest.mark.parametrize("threads", [32, 64, 128, 256, 512, 1024])
+def test_k1_field_op_block_sizes(cuda, threads):
+    """The entry at every block size chip_smoke.py times, for nb = 1, a
+    ragged row and a full b."""
+    from battlezips_halo2_tpu_torch.ops import cuda as K
+
+    rng = random.Random(threads)
+    spec = L.FP_SPEC
+    for batch, rows, nb in ((5, 777, 1), (5, 777, 777), (1, 3000, 3000)):
+        a = _edge_field(rng, spec.modulus, batch * rows, cuda).view(batch, rows, 8)
+        b = _edge_field(rng, spec.modulus, nb, cuda)
+        out = torch.empty_like(a)
+        K.check(K.library().bz_field_op(L.OP_MUL, spec.kernel_consts, K.ptr(a), K.ptr(b), K.ptr(out), batch * rows,
+                                        nb, threads, K.stream(a)), "K1 bz_field_op")
+        assert torch.equal(out, L.plain_field_op(L.OP_MUL, spec, a, b))
+
+
 def test_k4_ntt_stage(cuda):
     rng = random.Random(4)
     n = 1 << 9
@@ -65,6 +108,30 @@ def test_k3_point_add(cuda):
     p = C.point_add_plain(spec, p, q)
     q[0] = p[0]
     assert torch.equal(C.point_add(spec, p, q), C.point_add_plain(spec, p, q))
+
+
+@pytest.mark.parametrize("lanes", [1, 352, 1528])
+@pytest.mark.parametrize("d", [2, 3, 4])
+def test_k3_point_fold(cuda, d, lanes):
+    """K3's fold against its plain version and the host group law: the
+    identity, P == Q (equal and unequal Z) and P == -Q in the first lanes
+    (tests/test_torch_inputs.py::fold_stack), one launch a call."""
+    from battlezips_halo2_tpu_torch.ops import cuda as K
+
+    spec = L.FQ_SPEC
+    stack = fold_stack(VESTA, spec, d, seed=d * 10_000 + lanes, lanes=lanes).to(cuda)
+    before = K.entry_launches.get("bz_point_fold", 0)
+    got = C.point_fold(spec, stack)
+    assert K.entry_launches.get("bz_point_fold", 0) == before + 1
+    assert torch.equal(got, C.point_fold_plain(spec, stack))
+    sample = range(min(lanes, 16))
+    want = []
+    for i in sample:
+        acc = None
+        for p in C.jacobian_to_affine(spec, stack[:, i]):
+            acc = VESTA.add(acc, p)
+        want.append(acc)
+    assert C.jacobian_to_affine(spec, got[: len(sample)]) == want
 
 
 @pytest.mark.parametrize("complete", [False, True], ids=["K2", "K7"])
@@ -375,13 +442,15 @@ def _sharded_cases(mesh, dev):
 def test_sharded_ntt_and_msm_two_shards_on_one_card(cuda):
     """Two shards on one card: every kernel at shard shapes, every
     collective a copy on the card; bit-exact against the unsharded kernels,
-    the lane-wise K3 folding the partials and no K2."""
+    K3's fold adding the partials in one launch a commit batch (not the
+    lane-wise addition) and no K2."""
     from battlezips_halo2_tpu_torch.ops import cuda as K
     from battlezips_halo2_tpu_torch.parallel import mesh_from_devices
 
     K.reset_launches()
     _sharded_cases(mesh_from_devices([cuda, cuda]), torch.device("cuda", torch.cuda.current_device()))
-    assert K.entry_launches["bz_point_add"] > 0 and K.launches["K7"] > 0
+    assert K.entry_launches["bz_point_fold"] == 1 and "bz_point_add" not in K.entry_launches
+    assert K.launches["K7"] > 0
 
 
 def test_sharded_ntt_and_msm_on_two_cards(second_card, monkeypatch):
