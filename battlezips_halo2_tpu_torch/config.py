@@ -7,6 +7,7 @@
 | BZ_NO_SELECTOR_COMPRESS | selector_compression (inverted) | keygen opt-out |
 | BZ_ROW_NTT | row_ntt | NTT stages as gathers around kernel K5 (out-of-place butterfly) instead of K4 |
 | BZ_ROW_MSM | row_msm | MSM buckets by the complete law (K7) only, window aggregation on K6 (coordinate planes) instead of K3 |
+| BZ_NTT_MM | ntt_mm | on routes every NTT through the 4-step matrix-product NTT (ops/ntt_mm.py, kernel M1); auto (default) and off are accepted as the reference's names and leave it off: the reference's auto takes it only on a TPU |
 | BZ_SESSION_WORKERS / BZ_SESSION_DP | session_workers / session_dp | api.prove_session threads (default 1) / data-parallel cards (first N) |
 | BZ_SESSION_BATCHED | session_batched | route sessions through the batch prover (plonk/batch_prover.py) |
 | BZ_PROOF_ENGINE | proof_engine | device (default) / auto / host: where a proof's work runs (ops/engine.py) |
@@ -39,6 +40,7 @@ from dataclasses import dataclass, field
 
 
 PROOF_ENGINES = ("device", "auto", "host")
+NTT_MM_MODES = ("auto", "on", "off")
 
 
 def _flag(name: str) -> bool:
@@ -71,6 +73,7 @@ class FrameworkConfig:
     trace_verifier: bool = False
     row_ntt: bool = False
     row_msm: bool = False
+    ntt_mm: bool = False  # BZ_NTT_MM=on
     proof_engine: str = "device"  # "device" | "auto" | "host"
     latency_n_max: int = 1 << 14
     session_workers: int = 1
@@ -95,6 +98,7 @@ class FrameworkConfig:
             trace_verifier=_flag("BZ_VERIFY_TRACE"),
             row_ntt=_flag("BZ_ROW_NTT"),
             row_msm=_flag("BZ_ROW_MSM"),
+            ntt_mm=_choice("BZ_NTT_MM", NTT_MM_MODES) == "on",
             proof_engine=_choice("BZ_PROOF_ENGINE", PROOF_ENGINES),
             latency_n_max=int(os.environ.get("BZ_LATENCY_N_MAX", str(1 << 14))),
             session_workers=int(os.environ.get("BZ_SESSION_WORKERS", "1")),

@@ -447,6 +447,30 @@ __device__ __forceinline__ void jac_store(uint32_t* dst, const Jac& p) {
   fe_store(dst + 2 * BZ_NL, p.z);
 }
 
+// Point i of a batch of n: interleaved (n, 3, 8), a point every 24 words
+// and a coordinate every 8; or, PLANAR, planes (3, n, 8), a coordinate
+// every 8 n words.
+template <bool PLANAR>
+__device__ __forceinline__ Jac jac_load_at(const uint32_t* src, long long i, long long n) {
+  if (!PLANAR) return jac_load(src + i * 3 * BZ_NL);
+  Jac r;
+  r.x = fe_load(src + i * BZ_NL);
+  r.y = fe_load(src + (n + i) * BZ_NL);
+  r.z = fe_load(src + (2 * n + i) * BZ_NL);
+  return r;
+}
+
+template <bool PLANAR>
+__device__ __forceinline__ void jac_store_at(uint32_t* dst, long long i, long long n, const Jac& p) {
+  if (!PLANAR) {
+    jac_store(dst + i * 3 * BZ_NL, p);
+    return;
+  }
+  fe_store(dst + i * BZ_NL, p.x);
+  fe_store(dst + (n + i) * BZ_NL, p.y);
+  fe_store(dst + (2 * n + i) * BZ_NL, p.z);
+}
+
 __device__ __forceinline__ Jac jac_infinity(const FieldConsts& F) {
   Jac r;
   r.x = fe_one(F);

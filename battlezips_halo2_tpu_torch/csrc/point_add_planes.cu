@@ -1,47 +1,25 @@
-// K6: Jacobian point arithmetic with the points held as coordinate planes:
-// a batch of n points is (3, n, 8), the X, Y and Z planes each contiguous
-// (n rows of 8 x 32-bit limbs).
+// K6: the window aggregation of Pippenger's MSM with the points held as
+// coordinate planes: a batch of n points is (3, n, 8), the X, Y and Z
+// planes each contiguous (n rows of 8 x 32-bit limbs).
 //
 // Replaces battlezips_halo2_tpu/ops/pallas_kernels.py:167 point_add_rows
 // (_point_add_call), which took X, Y, Z as six separate (rows, 16) inputs
 // and gave three outputs, and which the reference's MSM under BZ_ROW_MSM
-// launched once per addition of its window aggregation. Two entries:
+// launched once per addition of its window aggregation. This file holds
+// bz_window_sums_planes, what the MSM runs: the aggregation of a whole
+// bucket pass in one launch, buckets (3, rows, nbuck, 8) -> (3, rows, 8),
+// T = sum_{b=1..m} b S_b for every row. Its body is K3's
+// (csrc/window_body.cuh), addressing a point's coordinates in their
+// planes; its design and bound are described there. K6's lane-wise
+// addition over planes, bz_point_add_planes, lives in csrc/point_add.cu
+// beside K3's, on the carry-chain field ops.
 //
-// - bz_window_sums_planes, what the MSM runs: the window aggregation of a
-//   whole bucket pass in one launch, buckets (3, rows, nbuck, 8) ->
-//   (3, rows, 8), T = sum_{b=1..m} b S_b for every row. Its body is K3's
-//   (csrc/window_body.cuh), addressing a point's coordinates in their
-//   planes; its design and bound are described there;
-// - bz_point_add_planes, the complete addition out = p + q over lanes, one
-//   thread a lane: the reference's kernel as it was, which the plain
-//   version's running sums call one addition at a time (the old route).
-//   Its outputs equal the lane-wise K3's coordinate for coordinate; at the
-//   aggregation's narrow widths launch latency bounds it.
-//
-// Both kernels call one out-of-line Montgomery product (BZ_FE_MUL_CALL,
-// csrc/field.cuh): the window kernel holds 121 registers instead of 188,
-// and took 6.4 ms of a row-configuration board proof's device time
-// instead of 14.7 with the product inlined (PERF.md §6).
+// The kernel calls one out-of-line Montgomery product (BZ_FE_MUL_CALL,
+// csrc/field.cuh): it holds 121 registers instead of 188, and took 6.4 ms
+// of a row-configuration board proof's device time instead of 14.7 with
+// the product inlined (PERF.md §6).
 #define BZ_FE_MUL_CALL
 #include "window_body.cuh"
-
-__global__ void point_add_planes_kernel(FieldConsts F, const uint32_t* p, const uint32_t* q,
-                                        uint32_t* out, long long n) {  // out may alias p or q
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Jac r = jac_add(F, jac_load_at<true>(p, i, n), jac_load_at<true>(q, i, n));
-  jac_store_at<true>(out, i, n, r);
-}
-
-extern "C" int bz_point_add_planes(const uint32_t* consts, const void* p, const void* q, void* out,
-                                   long long n, void* stream) {
-  const FieldConsts F = field_consts(consts);
-  const unsigned int block = 128;
-  point_add_planes_kernel<<<grid_for(n, block), block, 0, static_cast<cudaStream_t>(stream)>>>(
-      F, static_cast<const uint32_t*>(p), static_cast<const uint32_t*>(q),
-      static_cast<uint32_t*>(out), n);
-  return (int)cudaGetLastError();
-}
 
 __global__ void __launch_bounds__(BZ_WS_BLOCK)
     window_sums_planes_kernel(FieldConsts F, const uint32_t* __restrict__ buckets, uint32_t* __restrict__ out,

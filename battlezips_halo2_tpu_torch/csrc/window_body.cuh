@@ -40,30 +40,6 @@
 
 #define BZ_WS_BLOCK 128
 
-// Point i of a batch of n: interleaved (n, 3, 8), a point every 24 words
-// and a coordinate every 8; or, PLANAR, planes (3, n, 8), a coordinate
-// every 8 n words.
-template <bool PLANAR>
-__device__ __forceinline__ Jac jac_load_at(const uint32_t* src, long long i, long long n) {
-  if (!PLANAR) return jac_load(src + i * 3 * BZ_NL);
-  Jac r;
-  r.x = fe_load(src + i * BZ_NL);
-  r.y = fe_load(src + (n + i) * BZ_NL);
-  r.z = fe_load(src + (2 * n + i) * BZ_NL);
-  return r;
-}
-
-template <bool PLANAR>
-__device__ __forceinline__ void jac_store_at(uint32_t* dst, long long i, long long n, const Jac& p) {
-  if (!PLANAR) {
-    jac_store(dst + i * 3 * BZ_NL, p);
-    return;
-  }
-  fe_store(dst + i * BZ_NL, p.x);
-  fe_store(dst + (n + i) * BZ_NL, p.y);
-  fe_store(dst + (2 * n + i) * BZ_NL, p.z);
-}
-
 __device__ __forceinline__ void jac_to_shared(uint32_t* buf, int tid, const Jac& p) {
 #pragma unroll
   for (int w = 0; w < BZ_NL; ++w) {

@@ -10,7 +10,7 @@ Kernel K3's lane-wise forms (``csrc/point_add.cu``) are the complete
 addition :func:`point_add` and :func:`point_fold`, the left-to-right sum of
 a stack of D partials in one launch (the sharded MSM's fold; the MSM's
 window aggregation, K3 proper, is ``ops/msm.py::window_sums``). Kernel K6's lane-wise form
-(``csrc/point_add_planes.cu``), :func:`point_add_planes`, is the same
+(``csrc/point_add.cu`` too), :func:`point_add_planes`, is the same
 addition on points held as coordinate planes, ``(3, ..., 8)`` with X, Y
 and Z each contiguous, as the reference's ``JacobianPoint`` rows are (the
 MSM's planar window aggregation, K6 proper, is
@@ -199,8 +199,9 @@ def lift_plain(spec: FieldSpec, qxy: torch.Tensor) -> torch.Tensor:
 
 def point_add(spec: FieldSpec, p: torch.Tensor, q: torch.Tensor, out=None) -> torch.Tensor:
     """K3: complete Jacobian addition over lanes, (..., 3, 8) each; ``out``
-    may be ``p`` or ``q``. A CUDA tensor launches the kernel; a CPU tensor
-    runs :func:`point_add_plain`."""
+    may be ``p`` or ``q``. A CUDA tensor launches the kernel, one lane a
+    thread in blocks from ``ops/cuda.py::chain_grid``; a CPU tensor runs
+    :func:`point_add_plain`."""
     if p.shape != q.shape or p.shape[-2:] != (3, L.NLIMBS):
         raise ValueError(f"point batches must match as (..., 3, 8): {tuple(p.shape)}, {tuple(q.shape)}")
     if out is None:
@@ -213,7 +214,8 @@ def point_add(spec: FieldSpec, p: torch.Tensor, q: torch.Tensor, out=None) -> to
         cuda.require(t, torch.int32, "K3 point add")
     n = p.numel() // (3 * L.NLIMBS)
     if n:
-        cuda.launch("K3", "bz_point_add", p, spec.kernel_consts, cuda.ptr(p), cuda.ptr(q), cuda.ptr(out), n)
+        threads, _ = cuda.chain_grid(n, cuda.sm_count(p.device))
+        cuda.launch("K3", "bz_point_add", p, spec.kernel_consts, cuda.ptr(p), cuda.ptr(q), cuda.ptr(out), n, threads)
     return out
 
 
@@ -264,7 +266,8 @@ def point_add_planes_plain(spec: FieldSpec, p: torch.Tensor, q: torch.Tensor, ou
 def point_add_planes(spec: FieldSpec, p: torch.Tensor, q: torch.Tensor, out=None) -> torch.Tensor:
     """K6's lane-wise kernel: complete Jacobian addition over lanes of
     coordinate planes, (3, ..., 8) each; ``out`` may be ``p`` or ``q``. A
-    CUDA tensor launches the kernel; a CPU tensor runs
+    CUDA tensor launches the kernel, one lane a thread in blocks from
+    ``ops/cuda.py::chain_grid``; a CPU tensor runs
     :func:`point_add_planes_plain`."""
     if p.shape != q.shape or p.shape[0] != 3 or p.shape[-1] != L.NLIMBS:
         raise ValueError(f"point planes must match as (3, ..., 8): {tuple(p.shape)}, {tuple(q.shape)}")
@@ -278,7 +281,9 @@ def point_add_planes(spec: FieldSpec, p: torch.Tensor, q: torch.Tensor, out=None
         cuda.require(t, torch.int32, "K6 point add planes")
     n = p.numel() // (3 * L.NLIMBS)
     if n:
-        cuda.launch("K6", "bz_point_add_planes", p, spec.kernel_consts, cuda.ptr(p), cuda.ptr(q), cuda.ptr(out), n)
+        threads, _ = cuda.chain_grid(n, cuda.sm_count(p.device))
+        cuda.launch("K6", "bz_point_add_planes", p,
+                    spec.kernel_consts, cuda.ptr(p), cuda.ptr(q), cuda.ptr(out), n, threads)
     return out
 
 

@@ -69,6 +69,18 @@ def limbs_to_int(t: torch.Tensor) -> int:
     return v
 
 
+def geometric_limbs(modulus: int, first: int, ratio: int, count: int, device) -> torch.Tensor:
+    """(count, 8) limbs of first * ratio^j mod modulus, j < count, built in
+    Python ints on the host: the basis transforms' scale vectors
+    (ops/ntt.py::scale_vector, and over a mesh parallel/ntt.py) and the
+    matrix-product NTT's powers (ops/ntt_mm.py)."""
+    out, acc = [], first % modulus
+    for _ in range(count):
+        out.append(acc)
+        acc = acc * ratio % modulus
+    return ints_to_limbs(out, device)
+
+
 @dataclass(frozen=True, eq=False)
 class FieldSpec:
     """Constants of one Pasta field, for the kernels and their plain versions."""

@@ -43,7 +43,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")
+# K1-K9 replace the reference's TPU kernels; M1 (csrc/fp_matmul.cu) its
+# constant Fp matrix product, which ran on the MXU outside Pallas
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "M1")
 launches = {name: 0 for name in KERNELS}
 entry_launches: dict = {}
 
@@ -59,14 +61,16 @@ _SIGNATURES = {
     "bz_field_op": (_INT, _P, _P, _P, _P, _I64, _I64, _INT, _P),
     # consts, x, tw, batch, logn, stage, stream
     "bz_ntt_stage": (_P, _P, _P, _I64, _INT, _INT, _P),
-    # consts, p, q, out, n, stream
-    "bz_point_add": (_P, _P, _P, _P, _I64, _P),
+    # consts, p, q, out, n, threads a block, stream
+    "bz_point_add": (_P, _P, _P, _P, _I64, _INT, _P),
     # consts, stack, out, d, lanes, threads a block, stream
     "bz_point_fold": (_P, _P, _P, _INT, _I64, _INT, _P),
     # consts, u, v, tw, out0, out1, batch, n2, stream
     "bz_butterfly_rows": (_P, _P, _P, _P, _P, _P, _I64, _I64, _P),
-    # consts, p planes, q planes, out planes, n, stream
-    "bz_point_add_planes": (_P, _P, _P, _P, _I64, _P),
+    # consts, p planes, q planes, out planes, n, threads a block, stream
+    "bz_point_add_planes": (_P, _P, _P, _P, _I64, _INT, _P),
+    # consts, w, a, out, batch, kp, k, m, stream
+    "bz_fp_const_matmul": (_P, _P, _P, _P, _I64, _INT, _INT, _INT, _P),
     # consts, complete, table, src, bid, starts, out, flags, carry, carry flags, layout, nb, resident,
     # threads, stream
     "bz_msm_buckets": (_P, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
@@ -266,11 +270,11 @@ def sm_count(device: torch.device) -> int:
 
 
 def chain_grid(n: int, sms: int) -> tuple[int, int]:
-    """(threads a block, blocks) of a chain kernel (K8, K9, K3's fold) over
-    n lanes, one lane a thread: the largest power of two from 256 down to 32
-    whose blocks still reach all ``sms`` SMs (2^15 lanes in blocks of 256
-    are 128 blocks, which leave 4 of the H100's 132 SMs idle; the fold's 352
-    lanes take 11 blocks of 32)."""
+    """(threads a block, blocks) of a chain kernel (K8, K9, K3's fold, K3's
+    and K6's lane-wise additions) over n lanes, one lane a thread: the
+    largest power of two from 256 down to 32 whose blocks still reach all
+    ``sms`` SMs (2^15 lanes in blocks of 256 are 128 blocks, which leave 4 of the
+    H100's 132 SMs idle; the fold's 352 lanes take 11 blocks of 32)."""
     block = 256
     while block > 32 and -(-n // block) < sms:
         block //= 2

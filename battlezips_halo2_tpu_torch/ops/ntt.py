@@ -10,7 +10,9 @@ poly/domain.py::ntt_host.
 Under ``BZ_ROW_NTT`` a stage takes the reference's row-layout route
 instead: gather u and v by the stage's index tables, kernel K5
 (``csrc/butterfly_rows.cu``) writes u + v tw and u - v tw to two new
-tensors, and their concatenation is gathered back into order.
+tensors, and their concatenation is gathered back into order. Under
+``BZ_NTT_MM=on`` the whole NTT is the 4-step matrix-product one of
+``ops/ntt_mm.py`` (kernel M1), which takes precedence over both.
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ import torch
 from ..config import config
 from ..fields import limb as L
 from ..fields.host import Field
-from ..fields.limb import FieldSpec, ints_to_limbs
+from ..fields.limb import FieldSpec, geometric_limbs, ints_to_limbs
 from ..poly.domain import bit_reverse
+from .ntt_mm import mm_plan_for, ntt_mm
 
 
 class NttPlan:
@@ -134,9 +137,20 @@ def butterfly_rows(spec: FieldSpec, u: torch.Tensor, v: torch.Tensor, tw: torch.
 
 
 def ntt(plan: NttPlan, a: torch.Tensor) -> torch.Tensor:
-    """NTT of Montgomery-form rows (..., n, 8), natural order in and out."""
+    """NTT of Montgomery-form rows (..., n, 8), natural order in and out.
+    Under ``BZ_NTT_MM=on`` it is the 4-step matrix-product NTT
+    (ops/ntt_mm.py, kernel M1) at every n; ``intt``, the basis transforms
+    and the sharded NTT's local transforms all come through here."""
+    cfg = config()
+    if cfg.ntt_mm:
+        # The reference checks BZ_NTT_MM first too, and its "auto" takes the
+        # matrix-product route only on a TPU backend, for 2^16 <= n <= 2^21
+        # (battlezips_halo2_tpu/ops/ntt.py:216-224, _pallas_ok at :255-258).
+        # This port has no TPU, so "auto" is "off" here, as it is in the
+        # reference on any other backend.
+        return ntt_mm(mm_plan_for(plan.spec.modulus, plan.n, plan.omega, str(plan.rev_idx.device)), a)
     x = a.reshape(-1, plan.n, L.NLIMBS).index_select(1, plan.rev_idx)
-    if config().row_ntt:
+    if cfg.row_ntt:
         for idx_u, idx_v, idx_out, tw_full in plan.row_tables():
             out0, out1 = butterfly_rows(plan.spec, x.index_select(1, idx_u), x.index_select(1, idx_v), tw_full)
             x = torch.cat((out0, out1), dim=1).index_select(1, idx_out)
@@ -151,17 +165,6 @@ def intt(plan_inv: NttPlan, a: torch.Tensor, n_inv_mont: torch.Tensor) -> torch.
     ``n_inv_mont`` ((1, 8) limbs of n^-1 in Montgomery form)."""
     out = ntt(plan_inv, a)
     return L.mont_mul(plan_inv.spec, out, n_inv_mont, out=out)
-
-
-def geometric_limbs(modulus: int, first: int, ratio: int, count: int, device) -> torch.Tensor:
-    """(count, 8) limbs of first * ratio^j mod modulus, j < count, built in
-    Python ints on the host: the scale vectors of the basis transforms, here
-    (:func:`scale_vector`) and over a mesh (parallel/ntt.py)."""
-    out, acc = [], first % modulus
-    for _ in range(count):
-        out.append(acc)
-        acc = acc * ratio % modulus
-    return ints_to_limbs(out, device)
 
 
 @functools.lru_cache(maxsize=None)

@@ -8,7 +8,7 @@ from the root of a checkout. In order, it
 
 1. builds the CUDA kernels of ``battlezips_halo2_tpu_torch/csrc`` with nvcc
    and, beside them, the old build (``csrc/previous/``: K1's elementwise
-   and K3's lane-wise kernels before their redesign, on the 64-bit
+   and K3's and K6's lane-wise kernels before their redesign, on the 64-bit
    product), and reads the card's integer multiply rate (SMs, maximum SM
    clock) and the multiplies of one Montgomery product, 64-bit and carry
    chain (SASS of the built libraries), for the operations bounds;
@@ -46,7 +46,10 @@ from the root of a checkout. In order, it
    against its plain version and the old route (D - 1 launches of the old
    build's addition) coordinate for coordinate at D = 2, 3, 4 with the
    special cases, and timed against that old route at D = 2 and 4 over a
-   board commit batch's 352 lanes, and at D = 4 for each block size. The
+   board commit batch's 352 lanes, and at D = 4 for each block size. K6's
+   lane-wise addition (coordinate planes, csrc/point_add.cu) is held
+   against its plain version, K3's and the old build's, and timed beside
+   the old build's in turns at 1528, 1 and 2^17 generic lanes. The
    launch-bound rows (K4, K5, the lane-wise K3 and K6, K7's 3-point MSM,
    and elementwise K1 below) are timed with the card setting the pace
    (``ops/timing.py::device_paced_ms``), the host-paced time or the old
@@ -129,6 +132,16 @@ from the root of a checkout. In order, it
    them with the card setting the pace (the host-paced times beside), and
    K9's raw and noop as their one PyTorch call; K8 and K9 must each have
    launched on this path;
+5b. the matrix-product NTT (``ops/ntt_mm.py``, ``BZ_NTT_MM=on``), its
+   counts set to 0 before it and read after: the golden board proof under
+   ``BZ_NTT_MM=on`` (bytes must equal ``tests/golden/board_k12.json``,
+   accepted, then a steady proof), which must launch M1
+   (``csrc/fp_matmul.cu``) and no K4 or K5; then M1 held bit-exact against
+   its plain version (a batch by a (12, 16) matrix in Montgomery form and
+   as given, the all-(p - 1) matrix, the (17, 2^15) batch's row product)
+   and timed at both products of that NTT, and the NTT held bit-exact
+   against the K4 route at n = 2^16, 2^18, 2^20 and the (17, 2^15) batch,
+   both timed device-paced in turns;
 6. prints the script's total seconds, a JSON line of per-kernel numbers,
    the card's name and power limit, and last ``{"ok": true, "device":
    {...}}``.
@@ -156,7 +169,7 @@ PALLAS_KERNELS = "battlezips_halo2_tpu/ops/pallas_kernels.py"
 EXP_STEP_T = "tools/exp_step_t.py"
 MICROBENCHMARK = ROOT / "tools" / "torch_exp_step_t.py"
 SERVER = ROOT / "tools" / "torch_serve.py"
-PREVIOUS = PACKAGE / "csrc" / "previous"  # K1 elementwise and K3 lane-wise before their redesign
+PREVIOUS = PACKAGE / "csrc" / "previous"  # K1 elementwise, K3 and K6 lane-wise before their redesign
 T_START = time.time()
 
 # NVIDIA H100 SXM data sheet (dense, 700 W): the HBM rate. The field
@@ -177,6 +190,12 @@ CC_MONT_MUL_RESULTS = None  # the same of the carry-chain product (K1 elementwis
 # a * b products; add and sub are 8 limb adds, 8 limb subtracts and 8
 # selects; raw is 8 limb adds; noop does nothing
 CHAIN_OP_RESULTS = {"add": 24, "sub": 24, "raw": 8, "noop": 0}
+WIDE_PRODUCT_RESULTS = 2 * 8 * 8  # the 64 32 x 32 -> 64-bit limb products of a * b
+# the reference's exact matrix product splits W R and a into 32 8-bit chunk
+# planes each; on the H100 those pairs would run on the int8 tensor cores,
+# 1,979e12 operations a second dense at 700 W (NVIDIA's data sheet)
+REFERENCE_CHUNK_PAIRS = 32 * 32
+INT8_MMA_OPS_PER_S = 1.979e15
 
 KERNELS = {
     "K1": ("quotient_vm (the quotient program in one launch; elementwise field_op beside it)",
@@ -188,15 +207,19 @@ KERNELS = {
     "K4": ("ntt_stage (radix-2 DIT butterfly)", "csrc/ntt_stage.cu", f"{PALLAS_KERNELS}:454"),
     "K5": ("butterfly_rows (out-of-place butterfly, row layout)", "csrc/butterfly_rows.cu", f"{PALLAS_KERNELS}:121"),
     "K6": ("window_sums_planes (window aggregation in one launch, coordinate planes; lane-wise point_add_planes "
-           "beside it)", "csrc/point_add_planes.cu", f"{PALLAS_KERNELS}:167"),
+           "beside it, csrc/point_add.cu)", "csrc/point_add_planes.cu", f"{PALLAS_KERNELS}:167"),
     "K7": ("msm_buckets complete variant", "csrc/msm_buckets.cu", f"{PALLAS_KERNELS}:227"),
     "K8": ("step_chain (chained incomplete bucket step)", "csrc/step_chain.cu", f"{EXP_STEP_T}:110"),
     "K9": ("op_chain (chained field ops)", "csrc/op_chain.cu", f"{EXP_STEP_T}:210"),
+    # no Pallas kernel: the reference's constant Fp matrix product on the MXU
+    "M1": ("fp_const_matmul (the matrix-product NTT's constant Fp matrix product, BZ_NTT_MM=on)", "csrc/fp_matmul.cu",
+           "battlezips_halo2_tpu/ops/ntt_mm.py:108"),
 }
 PROOF_PATH_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
 # the kernels of a sharded board proof, per configuration
 PARALLEL_PATH_KERNELS = {"default": ("K1", "K3", "K4", "K7"), "row": ("K5", "K6", "K7")}
 MICRO_PATH_KERNELS = ("K8", "K9")
+NTT_MM_PATH_KERNELS = ("M1",)  # a board proof under BZ_NTT_MM=on
 
 GOLDEN_PLACEMENTS = [(3, 3, True), (5, 4, False), (0, 1, False), (0, 5, True), (6, 1, False)]
 ROW_FLAGS = ("BZ_ROW_NTT", "BZ_ROW_MSM")
@@ -278,10 +301,11 @@ def _rand_canonical(rng: random.Random, n: int, dev):
 
 
 def build_previous() -> Path:
-    """The old build: K1's elementwise and K3's lane-wise kernels as they
-    were before their redesign (``csrc/previous/*.cu``, the 64-bit product),
-    beside a copy of ``csrc/field.cuh``, built apart from the port's
-    library; -> the library's path."""
+    """The old build: K1's elementwise and K3's and K6's lane-wise kernels
+    as they were before their redesign (``csrc/previous/*.cu``, the 64-bit
+    product), beside copies of ``csrc/field.cuh`` and
+    ``csrc/window_body.cuh``, built apart from the port's library; -> the
+    library's path."""
     import shutil
 
     from battlezips_halo2_tpu_torch.ops import cuda
@@ -289,13 +313,14 @@ def build_previous() -> Path:
     dst = cuda.BUILD_ROOT / "copies" / "previous"
     shutil.rmtree(dst, ignore_errors=True)
     dst.mkdir(parents=True)
-    for src in sorted(PREVIOUS.glob("*.cu")) + [cuda.CSRC / "field.cuh"]:
+    for src in sorted(PREVIOUS.glob("*.cu")) + [cuda.CSRC / "field.cuh", cuda.CSRC / "window_body.cuh"]:
         shutil.copy(src, dst / src.name)
     return cuda.build(dst)
 
 
 def load_previous(path: Path):
-    """The old build, bound: its bz_field_op takes no block size."""
+    """The old build, bound: its bz_field_op, bz_point_add and
+    bz_point_add_planes take no block size."""
     import ctypes
 
     from battlezips_halo2_tpu_torch.ops import cuda
@@ -303,6 +328,7 @@ def load_previous(path: Path):
     lib = cuda.load(path)
     p, i64 = ctypes.c_void_p, ctypes.c_longlong
     lib.bz_field_op.argtypes = (ctypes.c_int, p, p, p, p, i64, i64, p)
+    lib.bz_point_add.argtypes = lib.bz_point_add_planes.argtypes = (p, p, p, p, i64, p)
     return lib
 
 
@@ -716,15 +742,25 @@ def check_k1_vm(dev, rng: random.Random, board_vk, shot_vk) -> dict:
             "shape": f"board {board['shape']} (shot: {shot['shape']})", "shot": shot}
 
 
-def check_k6(dev, rng: random.Random, lanes: int) -> dict:
+K6_LANES = (1528, 1, 1 << 17)  # the row's shape (K3's lane-wise row), one lane's chain, a card's worth
+K6_THREADS = (32, 64, 128, 256)  # block sizes timed at the most lanes
+
+
+def check_k6(dev, rng: random.Random, lanes: int, old) -> dict:
     """K6's lane-wise kernel against its plain version and against K3's
     (coordinate for coordinate) on the cases of check_k3, held as
-    coordinate planes, also with the output in place of an input; times it
-    at check_k3's shape."""
+    coordinate planes, also with the output in place of an input; then at
+    each lane count of K6_LANES over generic lanes (repeated past the
+    generated ones), against the old build's kernel (``old``,
+    csrc/previous/point_add_planes.cu) and its plain version, and timed
+    device-paced in turns with the old build, and at the most lanes at
+    each block size of K6_THREADS. The first shape is the row's."""
     import torch
 
     from battlezips_halo2_tpu_torch.curves import limb as C
     from battlezips_halo2_tpu_torch.fields.limb import FQ_SPEC
+    from battlezips_halo2_tpu_torch.ops import cuda
+    from battlezips_halo2_tpu_torch.ops.timing import device_paced_ms, host_paced_ms
 
     spec = FQ_SPEC
     P, Q, generic = _point_pairs(dev, rng, lanes)
@@ -735,14 +771,49 @@ def check_k6(dev, rng: random.Random, lanes: int) -> dict:
     into = Pp.clone()  # out aliasing p, as the aggregation runs it
     C.point_add_planes(spec, into, Qp, out=into)
     err = max(err, max_abs_err(into, got))
-    R, S = Pp[:, generic:].contiguous(), Qp[:, generic:].contiguous()
-    out = torch.empty_like(R)
-    ms, host = paced(lambda: C.point_add_planes(spec, R, S, out=out), 100)
-    plain = cuda_ms(lambda: C.point_add_planes_plain(spec, R, S), 2)
-    bms, by = bound_ms(R.shape[1] * 3 * 96, R.shape[1] * 16 * MONT_MUL_RESULTS)
-    shape = f"{R.shape[1]} generic lanes as (3, lanes, 8) planes, Vesta, device-paced"
-    return {"max_abs_err": err, "ms": ms, "host_paced_ms": host, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "shape": shape}
+    base_p, base_q = Pp[:, generic:], Qp[:, generic:]
+    per_shape = []
+    for n in K6_LANES:
+        reps = -(-n // base_p.shape[1])
+        R, S = (t.repeat(1, reps, 1)[:, :n].contiguous() for t in (base_p, base_q))
+        out, old_out = torch.empty_like(R), torch.empty_like(R)
+
+        def old_add():
+            cuda.check(old.bz_point_add_planes(spec.kernel_consts, cuda.ptr(R), cuda.ptr(S), cuda.ptr(old_out), n,
+                                               cuda.stream(R)), "K6 bz_point_add_planes (old build)")
+
+        def tree_add():
+            C.point_add_planes(spec, R, S, out=out)
+
+        want, plain = once_ms(lambda: C.point_add_planes_plain(spec, R, S))
+        tree_add()
+        old_add()
+        err = max(err, max_abs_err(out, want), max_abs_err(old_out, want))
+        turns = in_turns({"tree": tree_add, "old": old_add}, 100)
+        bms, by = bound_ms(n * 3 * 96, n * 16 * CC_MONT_MUL_RESULTS)
+        row = {"lanes": n, "threads": cuda.chain_grid(n, cuda.sm_count(R.device))[0], "ms": _mean(turns["tree"]),
+               "host_paced_ms": host_paced_ms(tree_add, 100), "old_build_ms": _mean(turns["old"]), "turns": turns,
+               "plain_ms": plain, "bound_ms": bms, "bound_by": by}
+        if n == max(K6_LANES):
+
+            def add_with(threads):
+                cuda.check(cuda.library().bz_point_add_planes(spec.kernel_consts, cuda.ptr(R), cuda.ptr(S),
+                                                              cuda.ptr(out), n, threads, cuda.stream(R)),
+                           "K6 bz_point_add_planes")
+
+            row["threads_ms"] = {t: device_paced_ms(lambda t=t: add_with(t), 100) for t in K6_THREADS}
+        per_shape.append(row)
+        log(f"  K6 lane-wise point_add_planes, {n} generic lanes ({row['threads']} threads a block): "
+            f"{row['ms']:.4f} ms device-paced (turns {turns['tree']}), old build {row['old_build_ms']:.4f} ms (turns "
+            f"{turns['old']}), {row['ms'] / row['old_build_ms']:.2f}x; host-paced {row['host_paced_ms']:.4f} ms; "
+            f"plain {plain:.1f} ms; bound {bms:.6f} ms ({by}), {100 * bms / row['ms']:.1f} % of it"
+            + (f"; block sizes {row['threads_ms']}" if "threads_ms" in row else ""))
+    first = per_shape[0]
+    shape = (f"{first['lanes']} generic lanes as (3, lanes, 8) planes, Vesta, device-paced (per_shape: "
+             f"{', '.join(str(r['lanes']) for r in per_shape)} lanes)")
+    return {"max_abs_err": err, "ms": first["ms"], "host_paced_ms": first["host_paced_ms"],
+            "old_build_ms": first["old_build_ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": None, "shape": shape, "per_shape": per_shape}
 
 
 def check_k5(dev, rng: random.Random, sizes, time_batch: int, time_logn: int) -> dict:
@@ -1803,6 +1874,146 @@ def _tampered_hex(proof_hex: str) -> str:
     return _tampered(bytes.fromhex(proof_hex)).hex()
 
 
+NTT_MM_LOGNS = (16, 18, 20)  # the reference's auto range on a TPU (2^16-2^21; 2^21 exceeds its limit)
+BOARD_EXT_BATCH, BOARD_EXT_LOGN = 17, 15  # the per-proof polynomials the board's quotient extends, to 2^15
+
+
+def _m1_bound(batch: int, kp: int, k: int, m: int) -> tuple[float, str]:
+    """M1's bound, what the function needs at the integer rate: W, a and
+    out each moved once; a term's 64 wide limb products and one Montgomery
+    reduction an output (the sum kept wide, reduced once), additions folded
+    into the multiply-adds."""
+    terms, outputs = batch * kp * k * m, batch * kp * m
+    return bound_ms(32 * (kp * k + batch * k * m + batch * kp * m),
+                    terms * WIDE_PRODUCT_RESULTS + outputs * (CC_MONT_MUL_RESULTS - WIDE_PRODUCT_RESULTS))
+
+
+def _m1_int8_bound(batch: int, kp: int, k: int, m: int) -> float:
+    """ms of the reference's chunk-plane form of the same product on the
+    int8 tensor cores: every pair of W R's and a's 32 8-bit chunks a
+    multiply-add (two operations) a term, at the dense int8 peak, or the
+    bytes, whichever is longer."""
+    nbytes = 32 * (kp * k + batch * k * m + batch * kp * m)
+    ops = 2 * REFERENCE_CHUNK_PAIRS * batch * kp * k * m
+    return max(nbytes / HBM_BYTES_PER_S, ops / INT8_MMA_OPS_PER_S) * 1e3
+
+
+def run_board_ntt_mm(dev, timed: Phases) -> dict:
+    """The golden board proof under BZ_NTT_MM=on (every NTT on the matrix
+    product), its verify and a steady proof; the bytes must be
+    tests/golden/board_k12.json's, M1 must launch and K4 / K5 must not.
+    -> the launches of the three phases."""
+    from battlezips_halo2_tpu_torch import api
+    from battlezips_halo2_tpu_torch.ops import cuda
+
+    golden = json.loads(GOLDEN_BOARD.read_text())
+    before = dict(cuda.launches)
+    caller = os.environ.get("BZ_NTT_MM")
+    os.environ["BZ_NTT_MM"] = "on"
+    try:
+        proof = timed("prove_board (golden rng) [BZ_NTT_MM=on]",
+                      lambda: api.prove_board(GOLDEN_PLACEMENTS, 0xBEEF, rng=random.Random(golden["seed"]), device=dev))
+        accepted = timed("verify_board [BZ_NTT_MM=on]", lambda: api.verify_board(proof, device=dev))
+        timed("prove_board (fresh rng, steady state) [BZ_NTT_MM=on]",
+              lambda: api.prove_board(GOLDEN_PLACEMENTS, 0xBEEF, rng=random.Random(8), device=dev))
+    finally:
+        if caller is None:
+            os.environ.pop("BZ_NTT_MM")
+        else:
+            os.environ["BZ_NTT_MM"] = caller
+    delta = {k: cuda.launches[k] - before[k] for k in before}
+    if proof.proof.hex() != golden["proof_hex"]:
+        raise AssertionError("board proof bytes under BZ_NTT_MM=on differ from tests/golden/board_k12.json")
+    if not accepted:
+        raise AssertionError("verify_board rejected the golden proof made under BZ_NTT_MM=on")
+    if delta["M1"] <= 0 or delta["K4"] or delta["K5"]:
+        raise AssertionError(f"the BZ_NTT_MM=on board proofs took the wrong kernels: {delta}")
+    log(f"golden board proof bytes equal under BZ_NTT_MM=on, accepted; launches {delta}")
+    return delta
+
+
+def check_m1(dev, rng: random.Random) -> dict:
+    """M1 against its plain version, bit for bit: a batch of 3 by a (12, 16)
+    matrix in Montgomery form and as given (mont=False), the all-(p - 1)
+    matrix, and the board's (17, 2^15) batch's row product (17 rows of
+    (256, 128) by the (256, 256) DFT matrix of its plan), which is timed
+    device-paced (one launch) beside the plain version; the column product
+    of that NTT is timed too."""
+    from battlezips_halo2_tpu_torch.fields.host import FP
+    from battlezips_halo2_tpu_torch.fields.limb import FP_SPEC
+    from battlezips_halo2_tpu_torch.ops import ntt_mm as MM
+    from battlezips_halo2_tpu_torch.ops.timing import device_paced_ms
+
+    spec, p = FP_SPEC, FP.modulus
+    err = 0
+    a = _rand_field(rng, p, 3 * 16 * 5, dev).view(3, 16, 5, 8)
+    w_ints = [[rng.randrange(p) for _ in range(16)] for _ in range(12)]
+    for w, mont in ((w_ints, True), (w_ints, False), ([[p - 1] * 16] * 12, True)):
+        err = max(err, max_abs_err(MM.fp_const_matmul(spec, w, a, mont=mont),
+                                   MM.fp_const_matmul_plain(spec, w, a, mont=mont)))
+    logn = BOARD_EXT_LOGN
+    omega = pow(FP.root_of_unity, 1 << (FP.two_adicity - logn), p)
+    plan = MM.mm_plan_for(p, 1 << logn, omega, str(dev))
+    per_shape = []
+    for name, w, k, m in (("row product", plan.w1, plan.n1, plan.n2), ("column product", plan.w2, plan.n2, plan.n1)):
+        x = _rand_canonical(rng, BOARD_EXT_BATCH * k * m, dev).view(BOARD_EXT_BATCH, k, m, 8)
+        got = MM.fp_const_matmul(spec, w, x)
+        ms = device_paced_ms(lambda: MM.fp_const_matmul(spec, w, x), 20)
+        row = {"shape": f"{name} of the ({BOARD_EXT_BATCH}, 2^{logn}) batch: ({BOARD_EXT_BATCH}, {k}, {m}, 8) by "
+                        f"({k}, {k})", "ms": ms}
+        row["bound_ms"], row["bound_by"] = _m1_bound(BOARD_EXT_BATCH, k, k, m)
+        row["int8_mma_bound_ms"] = _m1_int8_bound(BOARD_EXT_BATCH, k, k, m)
+        if not per_shape:
+            want, row["plain_ms"] = once_ms(lambda: MM.fp_const_matmul_plain(spec, w, x))
+            err = max(err, max_abs_err(got, want))
+        per_shape.append(row)
+        log(f"  M1 {row['shape']}: {ms:.4f} ms device-paced, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"{100 * row['bound_ms'] / ms:.1f} % of it; the chunk-plane form on the int8 tensor cores "
+            f"{row['int8_mma_bound_ms']:.4f} ms" + (f"; plain {row['plain_ms']:.1f} ms" if "plain_ms" in row
+                                                          else ""))
+    first = per_shape[0]
+    return {"max_abs_err": err, "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "int8_mma_bound_ms": first["int8_mma_bound_ms"], "library_ms": None,
+            "shape": f"{first['shape']}, Fp, device-paced (per_shape: both products)", "per_shape": per_shape}
+
+
+def check_ntt_mm(dev, rng: random.Random) -> list:
+    """The matrix-product NTT (ops/ntt_mm.py: two M1 launches and a K1
+    twiddle) against the K4 route, bit for bit, at n = 2^16, 2^18, 2^20 and
+    the board's (17, 2^15) batch, both timed device-paced in turns, with the
+    plan's build seconds."""
+    from battlezips_halo2_tpu_torch.fields.host import FP
+    from battlezips_halo2_tpu_torch.ops import ntt as D
+    from battlezips_halo2_tpu_torch.ops import ntt_mm as MM
+
+    p, rows = FP.modulus, []
+    for batch, logn in [(1, logn) for logn in NTT_MM_LOGNS] + [(BOARD_EXT_BATCH, BOARD_EXT_LOGN)]:
+        n = 1 << logn
+        omega = pow(FP.root_of_unity, 1 << (FP.two_adicity - logn), p)
+        x = _rand_canonical(rng, batch * n, dev).view(batch, n, 8)
+        plan = D.plan_for(p, n, omega, str(dev))
+        t = time.time()
+        mm_plan = MM.mm_plan_for(p, n, omega, str(dev))
+        plan_s = time.time() - t
+        err = max_abs_err(MM.ntt_mm(mm_plan, x), D.ntt(plan, x))
+        if err:
+            raise AssertionError(f"ntt_mm differs from the K4 route at ({batch}, 2^{logn})")
+        turns = in_turns({"ntt_mm": lambda: MM.ntt_mm(mm_plan, x), "K4": lambda: D.ntt(plan, x)},
+                         3 if logn >= 20 else 10)
+        bounds = [_m1_bound(batch, k, k, m) for k, m in ((mm_plan.n2, mm_plan.n1), (mm_plan.n1, mm_plan.n2))]
+        bms, by = sum(b for b, _ in bounds), "/".join(sorted({by for _, by in bounds}))
+        int8_ms = sum(_m1_int8_bound(batch, k, k, m) for k, m in ((mm_plan.n2, mm_plan.n1), (mm_plan.n1, mm_plan.n2)))
+        row = {"batch": batch, "logn": logn, "n1": mm_plan.n1, "n2": mm_plan.n2, "max_abs_err": err,
+               "ntt_mm_ms": _mean(turns["ntt_mm"]), "k4_ms": _mean(turns["K4"]), "turns": turns,
+               "m1_bound_ms": bms, "m1_int8_mma_bound_ms": int8_ms, "plan_s": plan_s}
+        rows.append(row)
+        log(f"  ntt_mm ({batch}, 2^{logn}) [n1 {mm_plan.n1}, n2 {mm_plan.n2}]: {row['ntt_mm_ms']:.4f} ms against the "
+            f"K4 route's {row['k4_ms']:.4f} ms ({row['ntt_mm_ms'] / row['k4_ms']:.1f}x; turns {turns}), bit-exact; "
+            f"its two M1 launches' bound {bms:.6f} ms ({by}), {int8_ms:.6f} ms as int8 chunk planes; "
+            f"plan built in {plan_s:.2f} s")
+    return rows
+
+
 def run_microbenchmark(dev) -> tuple[dict, dict]:
     """The K8 / K9 path: tools/torch_exp_step_t.py at the reference's
     shapes, every K9 op. The tool holds each kernel bit for bit against its
@@ -1958,7 +2169,7 @@ def main() -> int:
     rows["K3"] = check_k3_windows(dev, rng, window_shapes)
     rows["K2"], rows["K7"] = check_k2_k7(dev, rng)
     rows["K6"] = check_k6_windows(dev, rng, window_shapes)
-    lane_wise["K6"] = check_k6(dev, rng, 4096)
+    lane_wise["K6"] = check_k6(dev, rng, 4096, old)
     log(f"phase kernels vs plain: {time.time() - t:.3f} s")
     report_rows({**rows, "K3 lane-wise point_add and fold": lane_wise["K3"],
                  "K6 lane-wise point_add_planes": lane_wise["K6"]})
@@ -2039,17 +2250,32 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the microbenchmark path: {missing}")
     report_rows({"K8": rows["K8"], "K9": rows["K9"]})
 
+    # the matrix-product NTT: the golden board proof under BZ_NTT_MM=on (M1,
+    # no K4 / K5), then M1 against its plain version and the NTT against K4
+    cuda.reset_launches()
+    t = time.time()
+    ntt_mm_report = {"launches": run_board_ntt_mm(dev, timed)}
+    for name in NTT_MM_PATH_KERNELS:
+        launches[name] = cuda.launches[name]
+    missing = [k for k in NTT_MM_PATH_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the BZ_NTT_MM=on path: {missing}")
+    rows["M1"] = check_m1(dev, rng)
+    ntt_mm_report["ntt"] = check_ntt_mm(dev, rng)
+    log(f"phase matrix-product NTT: {time.time() - t:.3f} s on {card_line()}")
+    report_rows({"M1": rows["M1"]})
+
     kernels = []
     for name, (fn, src, replaces) in KERNELS.items():
         r = rows[name]
         extra = {k: r[k] for k in ("ms_launch_per_step", "host_paced_ms", "host_paced_ms_launch_per_step",
                                    "launch_floor_ms", "per_op", "old_route_ms", "per_shape", "resident_threads",
-                                   "shot", "three_point") if k in r}
+                                   "shot", "three_point", "int8_mma_bound_ms") if k in r}
         if name in lane_wise:  # the elementwise kernel beside the new entry, under the same name
             extra["elementwise_kernel"] = {**lane_wise[name], "source": {
                 "K1": "battlezips_halo2_tpu_torch/csrc/field_ops.cu",
                 "K3": "battlezips_halo2_tpu_torch/csrc/point_add.cu",
-                "K6": "battlezips_halo2_tpu_torch/csrc/point_add_planes.cu"}[name]}
+                "K6": "battlezips_halo2_tpu_torch/csrc/point_add.cu"}[name]}
         kernels.append({
             "name": f"{name} {fn}", "route": "cuda", "source": f"battlezips_halo2_tpu_torch/{src}",
             "replaces": replaces, "launches": launches[name],
@@ -2061,7 +2287,7 @@ def main() -> int:
     log(f"chip_smoke total: {time.time() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels, "phases_s": timed.seconds, "row_configuration_launches": row_launches,
                       "session_launches": session_launches, "native_engine": native_report, "serving": serving,
-                      "parallel": parallel,
+                      "parallel": parallel, "ntt_mm": ntt_mm_report,
                       "ops_per_s": OPS_PER_S, "mont_mul_results": MONT_MUL_RESULTS}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

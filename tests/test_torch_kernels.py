@@ -265,6 +265,84 @@ def test_k6_window_sums_planes(cuda, rows, nbuck):
     assert affine == [host_window_sum(row) for row in pts]
 
 
+@pytest.mark.parametrize("lanes", [1, 31, 1528, (1 << 16) + 3])
+def test_k6_point_add_planes_lanes(cuda, lanes):
+    """K6's lane-wise kernel at ragged lane counts against its plain version
+    and K3's lane-wise kernel, coordinate for coordinate, also with the
+    output in place of p and of q: the identity, P == Q (equal and unequal
+    Z) and P == -Q lanes of tests/test_torch_inputs.py::fold_stack, repeated
+    past its 1528 lanes. One launch a call."""
+    from battlezips_halo2_tpu_torch.ops import cuda as K
+
+    spec = L.FQ_SPEC
+    base = fold_stack(VESTA, spec, 2, seed=6_000 + min(lanes, 1528), lanes=min(lanes, 1528))
+    p, q = base.repeat(1, -(-lanes // base.shape[1]), 1, 1)[:, :lanes].to(cuda).unbind(0)
+    planes = [t.movedim(-2, 0).contiguous() for t in (p, q)]
+    before = K.entry_launches.get("bz_point_add_planes", 0)
+    got = C.point_add_planes(spec, *planes)
+    assert K.entry_launches.get("bz_point_add_planes", 0) == before + 1
+    assert torch.equal(got, C.point_add_planes_plain(spec, *planes))
+    assert torch.equal(got.movedim(0, -2), C.point_add(spec, p.contiguous(), q.contiguous()))
+    for i in range(2):
+        into = [t.clone() for t in planes]
+        assert torch.equal(C.point_add_planes(spec, *into, out=into[i]), got)
+        assert torch.equal(into[i], got)
+
+
+def _launches(name: str) -> int:
+    from battlezips_halo2_tpu_torch.ops import cuda as K
+
+    return K.launches[name]
+
+
+def _mm_operand(rng, spec, shape, dev):
+    """Random canonical limbs of ``shape`` + (8,), with 0, 1 and p - 1 first."""
+    count = 1
+    for d in shape:
+        count *= d
+    vals = [0, 1, spec.modulus - 1] + [rng.randrange(spec.modulus) for _ in range(count - 3)]
+    return L.ints_to_limbs(vals[:count], dev).view(*shape, 8)
+
+
+@pytest.mark.parametrize("batch, kp, k, m", [((), 12, 16, 5), ((3,), 12, 16, 5), ((2,), 33, 17, 40),
+                                              ((1,), 64, 64, 64), ((2, 2), 8, 8, 16), ((), 1, 1024, 1)],
+                         ids=["K'<K", "batch", "ragged", "64^3", "2-d batch", "1024 terms"])
+def test_m1_fp_const_matmul(cuda, batch, kp, k, m):
+    """M1 against its plain version, with the matrix in Montgomery limbs and
+    as given (mont=False), one launch a call; the all-(p - 1) matrix too."""
+    from battlezips_halo2_tpu_torch.ops import ntt_mm as MM
+
+    spec = L.FP_SPEC
+    rng = random.Random(kp * k + m)
+    a = _mm_operand(rng, spec, batch + (k, m), cuda)
+    w_ints = [[rng.randrange(spec.modulus) for _ in range(k)] for _ in range(kp)]
+    for w, mont in ((MM.matrix_limbs(spec, w_ints, cuda), True), (w_ints, False),
+                    ([[spec.modulus - 1] * k] * kp, True)):
+        before = _launches("M1")
+        got = MM.fp_const_matmul(spec, w, a, mont=mont)
+        assert _launches("M1") == before + 1
+        assert got.shape == batch + (kp, m, 8)
+        assert torch.equal(got, MM.fp_const_matmul_plain(spec, w, a, mont=mont))
+
+
+@pytest.mark.parametrize("logn", [1, 5, 10, 12])
+def test_ntt_mm_on_the_card(cuda, monkeypatch, logn):
+    """The matrix-product NTT equals the K4 route bit for bit, directly and
+    through ops/ntt.py::ntt under BZ_NTT_MM=on: two M1 launches, no K4."""
+    from battlezips_halo2_tpu_torch.ops import ntt_mm as MM
+
+    n = 1 << logn
+    omega = pow(FP.root_of_unity, 1 << (FP.two_adicity - logn), FP.modulus)
+    x = _field(random.Random(logn), FP.modulus, 3 * n, cuda).view(3, n, 8)
+    plan = D.plan_for(FP.modulus, n, omega, str(cuda))
+    want = D.ntt(plan, x)
+    assert torch.equal(MM.ntt_mm(MM.mm_plan_for(FP.modulus, n, omega, str(cuda)), x), want)
+    monkeypatch.setenv("BZ_NTT_MM", "on")
+    before = (_launches("M1"), _launches("K4"))
+    assert torch.equal(D.ntt(plan, x), want)
+    assert (_launches("M1"), _launches("K4")) == (before[0] + 2, before[1])
+
+
 def test_row_msm(cuda, monkeypatch):
     rng = random.Random(66)
     pts = [VESTA.mul(VESTA.generator, rng.randrange(1, 1 << 64)) for _ in range(300)]
